@@ -1,0 +1,104 @@
+"""State carry-over between the JAX package and the port, through NumPy.
+
+`*_from_numpy` accepts the JAX package's `SceneState`, `PhysicsState` or
+`PhysicsParams` after `jax.device_get` (objects whose fields are NumPy arrays),
+or a plain dict with the same keys, and builds the port's tensors on `device`.
+`*_to_numpy` returns a dict of NumPy arrays with the JAX field names, ready for
+`dataclasses.replace(jax_state, **{k: jnp.asarray(v) ...})`. Dtypes are kept
+(bool, int32, uint32, uint64, float32), so a round trip is exact. This module
+imports no JAX: the caller does the `device_get`.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .physics.state import BODY_FIELDS, MESH_FIELDS, PhysicsParams, PhysicsState
+from .scene.particles import ParticlePool
+from .scene.state import SceneState
+
+POOL_FIELDS = ("alive", "emitter", "age", "lifetime", "pos", "vel", "cursor")
+_PARAM_FLOATS = (
+    "baumgarte", "penetration_slop", "speculative_margin", "restitution_threshold",
+    "sleep_velocity", "sleep_time",
+)
+_PARAM_STATIC = ("velocity_iterations", "max_pairs", "points_per_pair", "comm", "allow_sleeping")
+
+
+def _get(src: Any, name: str, default=None):
+    if isinstance(src, dict):
+        return src.get(name, default)
+    return getattr(src, name, default)
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def physics_state_from_numpy(src: Any, device: torch.device | str = "cpu") -> PhysicsState:
+    fields = {name: _t(_get(src, name), device) for name in BODY_FIELDS}
+    mesh = {name: _t(_get(src, name), device) for name in MESH_FIELDS if _get(src, name) is not None}
+    return PhysicsState(
+        accumulator=_t(np.asarray(_get(src, "accumulator"), np.float32), device),
+        has_proxies=bool(_get(src, "has_proxies", False)),
+        **fields,
+        **mesh,
+    )
+
+
+def physics_state_to_numpy(ps: PhysicsState) -> dict:
+    out = {name: _np(getattr(ps, name)) for name in BODY_FIELDS}
+    out["accumulator"] = _np(ps.accumulator)
+    for name in MESH_FIELDS:
+        v = getattr(ps, name)
+        out[name] = None if v is None else _np(v)
+    out["has_proxies"] = ps.has_proxies
+    return out
+
+
+def physics_params_from_numpy(src: Any) -> PhysicsParams:
+    kw = {name: float(np.asarray(_get(src, name))) for name in _PARAM_FLOATS}
+    kw["gravity"] = tuple(float(v) for v in np.asarray(_get(src, "gravity")))
+    kw.update({name: _get(src, name) for name in _PARAM_STATIC})
+    return PhysicsParams(**kw)
+
+
+def scene_state_from_numpy(src: Any, device: torch.device | str = "cpu") -> SceneState:
+    pool = _get(src, "particles")
+    return SceneState(
+        alive=_t(_get(src, "alive"), device),
+        parent=_t(_get(src, "parent"), device),
+        level=_t(_get(src, "level"), device),
+        world=_t(_get(src, "world"), device),
+        previous_world=_t(_get(src, "previous_world"), device),
+        comp={
+            name: {k: _t(v, device) for k, v in fields.items()}
+            for name, fields in _get(src, "comp").items()
+        },
+        mask={name: _t(v, device) for name, v in _get(src, "mask").items()},
+        particles=ParticlePool(**{k: _t(_get(pool, k), device) for k in POOL_FIELDS}),
+        time=_t(np.asarray(_get(src, "time"), np.float32), device),
+        frame=_t(np.asarray(_get(src, "frame"), np.int32), device),
+    )
+
+
+def scene_state_to_numpy(st: SceneState) -> dict:
+    return {
+        "alive": _np(st.alive),
+        "parent": _np(st.parent),
+        "level": _np(st.level),
+        "world": _np(st.world),
+        "previous_world": _np(st.previous_world),
+        "comp": {name: {k: _np(v) for k, v in fields.items()} for name, fields in st.comp.items()},
+        "mask": {name: _np(v) for name, v in st.mask.items()},
+        "particles": {k: _np(getattr(st.particles, k)) for k in POOL_FIELDS},
+        "time": _np(st.time),
+        "frame": _np(st.frame),
+    }

@@ -1,0 +1,213 @@
+"""The port's frame step and headless runner against the JAX `frame_step` with
+its compact kernel run in interpret mode (patched in for this module only).
+
+Scene: 40 boxes squeezed into a touching pile on the floor, some with pose
+interpolation, a child entity riding a box, a particle emitter and an animated
+sprite. dt = 1/40 s, so frames take one or two 60 Hz substeps and the
+interpolation alpha is fractional. Physics differs only through the TPU
+kernel's bf16 hi/lo partner gathers (see test_torch_megakernel_compact.py), so
+the same bounds apply: 5e-5 m, 1e-3 m/s, 5e-3 rad/s, 1e-4 on quaternions;
+world matrices 1e-4."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oxylus_tpu.physics.megakernel_compact as jmc
+from oxylus_tpu.physics.state import PhysicsParams as JParams
+from oxylus_tpu.scene import frame as jframe
+from oxylus_tpu.scene import particles as jparticles
+from oxylus_tpu.scene import state as jstate
+from oxylus_tpu.scene.scene import Scene as JScene
+from oxylus_tpu_torch import bridge
+from oxylus_tpu_torch.physics import megakernel_compact as tmc
+from oxylus_tpu_torch.physics.state import PhysicsParams
+from oxylus_tpu_torch.runtime import SceneRunner
+from oxylus_tpu_torch.scene import frame as tframe
+from oxylus_tpu_torch.scene import particles as tparticles
+from oxylus_tpu_torch.scene import state as tstate
+from oxylus_tpu_torch.scene.scene import Scene as TScene
+
+torch.set_num_threads(1)
+
+DT = 1.0 / 40.0
+N_FRAMES = 3
+ATOL = {"pos": 5e-5, "linvel": 1e-3, "angvel": 5e-3, "quat": 1e-4}
+COMP_ATOL = {"translation": 5e-5, "previous_translation": 5e-5, "rotation": 1e-4,
+             "previous_rotation": 1e-4, "position": 5e-5}
+
+
+def _pile_scene(Scene, SceneSpec):
+    s = Scene("pile", spec=SceneSpec(max_entities=64, max_bodies=256, max_particles=128))
+    floor = s.create_entity("floor")
+    floor.add("TransformComponent", position=(0.0, -1.0, 0.0))
+    floor.add("BoxColliderComponent", size=(12.0, 1.0, 12.0), friction=0.5)
+    rng = np.random.default_rng(11)
+    boxes = []
+    for i in range(40):
+        gx, gy, gz = i % 4, (i // 16), (i // 4) % 4
+        j = rng.uniform(-0.03, 0.03, 3)
+        e = s.create_entity(f"box{i}")
+        e.add("TransformComponent", position=((gx - 2) * 0.81 + j[0], -0.11 + gy * 0.8 + j[1], (gz - 2) * 0.81 + j[2]))
+        e.add("BoxColliderComponent", size=(0.4, 0.4, 0.4), friction=0.5)
+        e.add("RigidBodyComponent", interpolation=bool(i % 2))
+        boxes.append(e)
+    rider = s.create_entity("rider")
+    rider.add("TransformComponent", position=(0.0, 0.6, 0.0), scale=(0.5, 0.5, 0.5))
+    rider.child_of(boxes[37])
+    em = s.create_entity("emitter")
+    em.add("TransformComponent", position=(1.0, 2.0, 0.0))
+    em.add("ParticleSystemComponent", rate_over_time=10)  # first spawn at t = 0.1 s
+    sp = s.create_entity("sprite")
+    sp.add("TransformComponent")
+    sp.add("SpriteAnimationComponent", num_frames=8, fps=12, columns=4)
+    s.runtime_start()
+    return s
+
+
+@pytest.fixture(scope="module")
+def jax_frames():
+    """Three frames of the JAX frame step, its compact kernel in interpret mode."""
+    s = _pile_scene(JScene, jstate.SceneSpec)
+    step = jax.jit(jframe.frame_step.__wrapped__, static_argnames=("spec", "has_bodies", "physics_mega"))
+    orig = jmc.megakernel_substeps_compact
+    jmc.megakernel_substeps_compact = functools.partial(orig, interpret=True)
+    try:
+        state, ps = s.to_device_state(), s.physics_state
+        for _ in range(N_FRAMES):
+            state, ps = step(state, ps, JParams(), jnp.float32(DT), s.spec, has_bodies=True, physics_mega=True)
+    finally:
+        jmc.megakernel_substeps_compact = orig
+    return jax.device_get(state), jax.device_get(ps)
+
+
+@pytest.fixture(scope="module")
+def port_frames():
+    s = _pile_scene(TScene, tstate.SceneSpec)
+    state, ps = s.to_device_state(), s.physics_state
+    for _ in range(N_FRAMES):
+        state, ps = tframe.frame_step(state, ps, PhysicsParams(), DT, s.spec, has_bodies=True, physics_mega=True)
+    return bridge.scene_state_to_numpy(state), bridge.physics_state_to_numpy(ps)
+
+
+@pytest.mark.parametrize("field", ["pos", "linvel", "angvel", "quat"])
+def test_frame_step_bodies_match_jax(jax_frames, port_frames, field):
+    np.testing.assert_allclose(port_frames[1][field], np.asarray(getattr(jax_frames[1], field)), rtol=0, atol=ATOL[field])
+
+
+def test_frame_step_accumulator_matches_jax(jax_frames, port_frames):
+    np.testing.assert_array_equal(port_frames[1]["accumulator"], np.asarray(jax_frames[1].accumulator))
+    assert 0.0 < float(port_frames[1]["accumulator"]) < 1.0 / 60.0  # a fractional alpha was exercised
+
+
+@pytest.mark.parametrize("comp,field", [
+    ("RigidBodyComponent", "translation"), ("RigidBodyComponent", "rotation"),
+    ("RigidBodyComponent", "previous_translation"), ("RigidBodyComponent", "previous_rotation"),
+    ("TransformComponent", "position"), ("TransformComponent", "rotation"),
+])
+def test_frame_step_components_match_jax(jax_frames, port_frames, comp, field):
+    want = np.asarray(jax_frames[0].comp[comp][field])
+    np.testing.assert_allclose(port_frames[0]["comp"][comp][field], want, rtol=0, atol=COMP_ATOL[field])
+
+
+def test_frame_step_world_and_clocks_match_jax(jax_frames, port_frames):
+    jst, (st, _) = jax_frames[0], port_frames
+    np.testing.assert_allclose(st["world"], np.asarray(jst.world), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(st["previous_world"], np.asarray(jst.previous_world), rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(st["time"], np.asarray(jst.time))
+    np.testing.assert_array_equal(st["frame"], np.asarray(jst.frame))
+    for comp, field in (("SpriteAnimationComponent", "current_time"), ("ParticleSystemComponent", "system_time")):
+        np.testing.assert_array_equal(st["comp"][comp][field], np.asarray(jst.comp[comp][field]))
+    _assert_pool_equal(jst.particles, st["particles"])
+
+
+def test_runner_runs_the_frame_step(port_frames, jax_frames):
+    """SceneRunner(render_mode="none", use_megakernel=True) on the CPU gives the
+    frame step's state exactly, and so stays within the JAX bounds."""
+    s = _pile_scene(TScene, tstate.SceneSpec)
+    runner = SceneRunner(s, render_mode="none", use_megakernel=True)
+    launches = tmc.LAUNCHES
+    runner.run(N_FRAMES, dt=DT)
+    assert tmc.LAUNCHES == launches  # CPU tensors: the plain version, no kernel launch
+    got = bridge.physics_state_to_numpy(runner.ps)
+    for field in ("pos", "linvel", "angvel", "quat"):
+        np.testing.assert_array_equal(got[field], port_frames[1][field])
+        np.testing.assert_allclose(got[field], np.asarray(getattr(jax_frames[1], field)), rtol=0, atol=ATOL[field])
+    np.testing.assert_array_equal(bridge.scene_state_to_numpy(runner.state)["world"], port_frames[0]["world"])
+    host = runner.sync_to_host()
+    np.testing.assert_array_equal(
+        host._comp_data["RigidBodyComponent"]["translation"][:64], port_frames[0]["comp"]["RigidBodyComponent"]["translation"]
+    )
+
+
+def test_runner_refuses_unported_routes():
+    s = _pile_scene(TScene, tstate.SceneSpec)
+    with pytest.raises(NotImplementedError):
+        SceneRunner(s, use_megakernel=False)
+    with pytest.raises(NotImplementedError):
+        SceneRunner(s, render_mode="3d", use_megakernel=True)
+    with pytest.raises(NotImplementedError):
+        SceneRunner(s, use_megakernel=True, track_contacts=True)
+
+
+def _assert_pool_equal(jpool, tpool, skip_pos_rows=None):
+    for k in ("alive", "emitter", "age", "lifetime", "vel", "cursor", "pos"):
+        want = np.asarray(getattr(jpool, k))
+        got = tpool[k]
+        if k == "pos" and skip_pos_rows is not None:
+            want, got = np.delete(want, skip_pos_rows, 0), np.delete(got, skip_pos_rows, 0)
+        np.testing.assert_array_equal(got, want, err_msg=k)
+
+
+def _emitter_state(system_time):
+    s = _pile_scene(JScene, jstate.SceneSpec)
+    st = s.to_device_state()
+    psys = dict(st.comp["ParticleSystemComponent"])
+    psys["system_time"] = jnp.full_like(psys["system_time"], system_time)
+    psys["burst_count"] = jnp.full_like(psys["burst_count"], 3)
+    return s.spec, dataclasses.replace(st, comp=dict(st.comp, ParticleSystemComponent=psys))
+
+
+@pytest.mark.parametrize("system_time", [0.02, 0.05])
+def test_particle_update_matches_exactly_without_spawns(system_time):
+    spec, jst = _emitter_state(system_time)
+    dt = jnp.float32(1.0 / 60.0)
+    want = jax.device_get(jparticles.particle_update(jst, spec, dt))
+    got = bridge.scene_state_to_numpy(
+        tparticles.particle_update(bridge.scene_state_from_numpy(jax.device_get(jst)), tstate.SceneSpec(**dataclasses.asdict(spec)), torch.tensor(1.0 / 60.0))
+    )
+    _assert_pool_equal(want.particles, got["particles"])
+    assert not np.asarray(want.particles.alive).any()  # the premise: no spawn this frame
+    for k, v in want.comp["ParticleSystemComponent"].items():
+        np.testing.assert_array_equal(got["comp"]["ParticleSystemComponent"][k], np.asarray(v), err_msg=k)
+
+
+def test_particle_update_spawn_frame():
+    """A frame that spawns: everything matches exactly except spawn positions,
+    which come from different random streams; those must lie on the emitter's
+    position_start → position_end segment."""
+    spec, jst = _emitter_state(0.095)  # crosses t = 0.1 s: one rate spawn
+    dt = jnp.float32(1.0 / 60.0)
+    want = jax.device_get(jparticles.particle_update(jst, spec, dt))
+    got = bridge.scene_state_to_numpy(
+        tparticles.particle_update(bridge.scene_state_from_numpy(jax.device_get(jst)), tstate.SceneSpec(**dataclasses.asdict(spec)), torch.tensor(1.0 / 60.0))
+    )
+    spawned = np.nonzero(np.asarray(want.particles.alive))[0]
+    assert len(spawned) >= 1
+    _assert_pool_equal(want.particles, got["particles"], skip_pos_rows=spawned)
+    psys = want.comp["ParticleSystemComponent"]
+    em = int(np.asarray(want.particles.emitter)[spawned[0]])
+    lo = np.asarray(jst.world)[em, :3, 3] + np.asarray(psys["position_start"])[em]
+    hi = np.asarray(jst.world)[em, :3, 3] + np.asarray(psys["position_end"])[em]
+    assert hi[0] != lo[0] and np.all(hi[1:] == lo[1:])  # the default segment runs along x
+    vel = np.asarray(want.particles.vel)
+    for pos in (np.asarray(want.particles.pos), got["particles"]["pos"]):
+        spawn = pos[spawned] - vel[spawned] * (1.0 / 60.0)  # undo the first integration step
+        t = (spawn[:, 0] - lo[0]) / (hi[0] - lo[0])
+        assert np.all((t >= -1e-4) & (t <= 1 + 1e-4))
+        np.testing.assert_allclose(spawn[:, 1:], np.broadcast_to(lo[1:], spawn[:, 1:].shape), atol=1e-5)
