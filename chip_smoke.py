@@ -2,30 +2,44 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and drives the
-port's main path on the card, at the flagship's full size (1022 falling boxes,
-capacity 1024) with bodies made from a fixed seed. Every kernel-vs-plain check
-calls the kernel's wrapper, `megakernel_substeps_compact`, on card tensors and
-holds it against the same call with the wrapper routed to the plain PyTorch
-version, on the same tensors: both sides run the wrapper's own slab-rank sort,
-permutation and inverse permutation on the card.
+Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
+G-buffer raster and the HiZ pyramid) from the sources in this checkout and
+drives the port's main path on the card: the fused simulate-and-render 3D
+frame of the config-5 scene at its full size (1920×1080, 150 meshlet objects,
+255 falling boxes, capacity 512) with bodies made from a fixed seed. Every
+kernel-vs-plain check runs the kernel and its plain PyTorch version on the same
+card tensors; for the compact kernel both sides run its wrapper
+(`megakernel_substeps_compact`, with its sort and permutations).
 
-1. set-up: a card must be visible; the kernel library is built with nvcc;
-2. kernel vs plain from the start state, for 8 and for 60 substeps, with the
-   bench's adaptive band and `n_planes=count_hub_planes`;
-3. main path: `SceneRunner(render_mode="none", use_megakernel=True)` steps the
-   flagship 120 frames; the kernel must have been launched, the state finite
-   and no box below the floor. Then, on the collapsing pile, kernel vs plain at
-   the main path's shapes (one substep per call, band 128, 4 planes): one
-   wrapper call and 8 runner frames, each frame compared from a shared state;
-4. the `physics` cell's shape: 60-substep launches with the whole-horizon
-   dropped-pair gate (<= 0.2% of pair events) and end-state band coverage;
-   then kernel vs plain with sleeping on, on the pile the cell has settled.
+1. set-up: a card must be visible; the kernel library is built with nvcc (one
+   process per source, in parallel); the meshes are baked;
+2. compact kernel vs plain from the flagship's start state, for 8 and for 60
+   substeps, with the bench's adaptive band and `n_planes=count_hub_planes`;
+3. main path: `SceneRunner(render_mode="3d", use_megakernel=True)` runs 2
+   warm-up frames, then 60 frames with every kernel's launch count set to 0
+   just before; each kernel must have launched, the image be finite in [0, 1],
+   the meshlet expansion may have dropped nothing (`expand_overflow`), no box
+   may have fallen through the floor, and in none of the 60 frames may the
+   binning capacity have dropped (`bin_overflow`) more than 5 % of the frame's
+   pairs. Then the compact kernel vs plain at the main path's
+   shapes: one wrapper call and 4 runner frames, each frame from a shared
+   state;
+4. the `physics` cell's shape on the flagship: 60-substep launches with the
+   whole-horizon dropped-pair gate (<= 0.2% of pair events) and end-state band
+   coverage; then compact vs plain with sleeping on, on the settled pile;
+5. raster and HiZ kernels vs plain at the main path's shapes: one frame's
+   raster inputs (the early pass, K2 = 192, and the late pass, K2 = 128, when a
+   late pass runs) and HiZ input are captured and run through the wrappers
+   `run_tiles` / `build_hiz` and through the plain versions (exactly equal),
+   each wrapper timed with CUDA events; the early pass is binned again at
+   K2 = 256, the most the vid's entry field holds, to report what that
+   capacity would drop; then one frame is rendered with the kernels and with
+   the plain versions from a shared state, and the two images must be equal.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
-The last two lines are a JSON object describing the kernel (launch count,
-error, times) and `{"ok": true, "device": {...}}`.
+The last two lines are a JSON object describing the kernels (launch counts,
+errors, times, bounds) and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -49,9 +63,24 @@ TOL_60 = {"pos": 1e-3, "linvel": 1e-2, "angvel": 5e-2, "quat": 1e-3}  # several 
 RMSE_CEIL_60 = 0.05  # m: the early-RMSE ceiling of the TPU device checks, never the target
 DROP_GATE = 0.002    # whole-horizon dropped-pair share, as bench.py's physics gate
 WARMUP, CALLS = 2, 48
-FLOOR_MID_Y = -1.0   # m: the flagship floor slab's centre plane
-MAIN_FRAMES, CMP_FRAMES = 120, 8
+FLOOR_MID_Y = -1.0   # m: the floor slab's centre plane
+BIN_DROP_GATE = 0.05  # share of a frame's binned pairs the binning capacity may drop
+WIDTH, HEIGHT = 1920, 1080
+MAIN_WARMUP, MAIN_FRAMES, CMP_FRAMES = 2, 60, 4
 FIELDS = ("pos", "linvel", "angvel", "quat")
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, float32 outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# Operations the raster's function needs, counted on this run's data. Per
+# real entry (one a tile holds, in a round the tile ran) and tile pixel: 5
+# planes × (4 mul + 5 add) of the hi/lo evaluation, then the cover test
+# (wd - zn, wd - 1e-30, 5 mins, 1 compare)
+RASTER_OPS_ENTRY_PIXEL = 53
+RASTER_OPS_COVERED = 6  # per covered (entry, pixel): max, reciprocal, multiply, the key's and + or, max
+RASTER_OPS_HIT = 45  # per hit pixel: 9 lanes × (2 mul + 2 add), the reciprocal, 8 multiplies
+# per overlapping body pair at a rebuild: the box-box SAT over 6 face axes, each
+# two 23-operation extents, a 6-operation centre projection, 2 adds and a compare
+# (the solver's per-pair sweeps are not counted)
+COMPACT_OPS_PAIR = 330
 
 
 def check(cond: bool, msg: str) -> None:
@@ -81,16 +110,55 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 @contextlib.contextmanager
-def plain_on_card(mc):
-    """Route the compact wrapper to the plain PyTorch version for card tensors,
-    for the reference side of a comparison; the wrapper's sort and permutation
-    still run. Outside this block card tensors reach the CUDA kernel."""
-    kernel = mc.run_compact
-    mc.run_compact = mc.compact_substeps_reference
+def plain_on_card(*modules):
+    """Route the given kernels' dispatch to their plain PyTorch versions for
+    card tensors, for the reference side of a comparison (the wrappers' own
+    torch code still runs). Outside this block card tensors reach the kernels."""
+    saved = []
+    for mod in modules:
+        name, plain = PLAIN_ROUTES[mod.__name__]
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, getattr(mod, plain))
     try:
         yield
     finally:
-        mc.run_compact = kernel
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+PLAIN_ROUTES = {
+    "oxylus_tpu_torch.physics.megakernel_compact": ("run_compact", "compact_substeps_reference"),
+    "oxylus_tpu_torch.ops.raster3d": ("run_tiles", "rasterize_tiles_reference"),
+    "oxylus_tpu_torch.ops.hiz": ("build_hiz", "hiz_reference"),
+}
+
+
+@contextlib.contextmanager
+def capture(mod, name: str, into: list, keep=lambda args: args):
+    """Record `keep(args)` of every call of `mod.name` while the block runs."""
+    fn = getattr(mod, name)
+
+    def wrapped(*args, **kw):
+        into.append(keep(args))
+        return fn(*args, **kw)
+
+    setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """The least time the card could take (ms): the larger of bytes over the
+    memory rate and float32 operations over the SMs' rate, and which one it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def psnr(a, b) -> float:
+    mse = (a.double() - b.double()).pow(2).mean().item()
+    return float("inf") if mse == 0 else 10.0 * torch.log10(torch.tensor(1.0 / mse)).item()
 
 
 def state_err(got, want) -> dict:
@@ -103,10 +171,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test needs a card", file=sys.stderr)
         return 2
     from oxylus_tpu_torch import _build
+    from oxylus_tpu_torch.assets.native import bake_path
     from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import hiz as hiz_ops
+    from oxylus_tpu_torch.ops import raster3d, setup3d
     from oxylus_tpu_torch.physics import megakernel_compact as mc
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
     from oxylus_tpu_torch.physics.state import BODY_DYNAMIC, PhysicsParams
+    from oxylus_tpu_torch.render import renderer3d
+    from oxylus_tpu_torch.render.camera import camera_from_state
     from oxylus_tpu_torch.runtime import SceneRunner
 
     dev = torch.device("cuda", 0)
@@ -155,38 +229,76 @@ def main() -> int:
         plain_ms = cuda_ms(call60, 2)
     print(f"[2] 60-substep wrapper call at B={ps0.num_slots}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms ({card})")
 
-    # ---- 3. the main path: the headless runner -------------------------------
-    runner = SceneRunner(build_flagship(FLAGSHIP_BOXES, device=dev), render_mode="none", use_megakernel=True)
-    mc.LAUNCHES = 0
+    # ---- 3. the main path: the fused 3D frame ----------------------------------
     t0 = time.perf_counter()
-    runner.run(MAIN_FRAMES)
+    scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    print(f"[3] config-5 scene and runner built in {time.perf_counter() - t0:.2f} s; meshes baked by the "
+          f"{bake_path()} path; {int(runner.ps.active.sum())} bodies, capacity {runner.ps.num_slots}; "
+          f"{runner.renderer3d.spec}", flush=True)
+    runner.run(MAIN_WARMUP)
+    kernel_mods = (mc, raster3d, hiz_ops)
+    for mod in kernel_mods:
+        mod.LAUNCHES = 0
+    # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
+    counts, frames = [], []
+    t0 = time.perf_counter()
+    with capture(raster3d, "run_tiles", counts, keep=lambda args: args[2]):
+        for _ in range(MAIN_FRAMES):
+            n0 = len(counts)
+            image = runner.step()
+            frames.append((runner.carry["bin_overflow"], n0))
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = mc.LAUNCHES
+    launches = {mod.__name__: mod.LAUNCHES for mod in kernel_mods}
     ps = runner.ps
     dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
-    print(f"[3] runner: {MAIN_FRAMES} frames in {wall:.3f} s = {MAIN_FRAMES / wall:.1f} frames/s ({card}); "
-          f"kernel launches {launches}")
-    check(launches > 0, "the runner never launched the compact kernel")
+    carry = runner.carry
+    print(f"[3] 3D runner: {MAIN_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall:.3f} s = {MAIN_FRAMES / wall:.2f} "
+          f"frames/s ({card}); kernel launches {launches}; expand_overflow {int(carry['expand_overflow'])}; "
+          f"image mean {image.mean().item():.5f}", flush=True)
+    # On the JAX package's own settings (32 meshlet groups, K2 = 192 triangle
+    # entries per tile) the config-5 pile crowds some tiles past the binning's
+    # capacity, which drops their farthest meshlet-tile pairs (the group stage)
+    # and tile-triangle pairs (the triangle stage). Gated per frame, the
+    # frame's dropped pairs as a share of its pairs rastered plus dropped.
+    ends = [n0 for _, n0 in frames[1:]] + [len(counts)]
+    drops = []
+    for (dropped, n0), n1 in zip(frames, ends):
+        pairs = sum(int(c.sum()) for c in counts[n0:n1])
+        drops.append((int(dropped) / max(pairs + int(dropped), 1), int(dropped), pairs))
+    worst = max(drops)
+    print(f"[3] binning drops over the {MAIN_FRAMES} frames: worst {100 * worst[0]:.3f} % ({worst[1]} of "
+          f"{worst[1] + worst[2]} pairs), first frame {drops[0][1]}, last frame {drops[-1][1]}, "
+          f"total {sum(d[1] for d in drops)}; frames that ran the late pass "
+          f"{sum(n1 - n0 == 2 for (_, n0), n1 in zip(frames, ends))}", flush=True)
+    check(worst[0] <= BIN_DROP_GATE, f"binning dropped {100 * worst[0]:.3f} % of a frame's pairs")
+    for name, n in launches.items():
+        check(n > 0, f"the main path never launched the {name} kernel")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(image.shape)}")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0 and image.max().item() <= 1.0,
+          "image not finite or outside [0, 1]")
+    check(int(carry["expand_overflow"]) == 0, "the meshlet expansion dropped work")
     check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "runner state not finite")
-    world = runner.state.world
-    check(bool(torch.isfinite(world).all()) and tuple(world.shape[1:]) == (4, 4), "world matrices")
     min_y = ps.pos[dyn, 1].min().item()
     print(f"[3] lowest box centre y = {min_y:.4f} m (floor slab: top 0 m, mid-plane -1 m)")
-    # The frame path restarts the λ caches every substep (one kernel call per
-    # substep, as the JAX frame does), so the pile sinks into the floor: the JAX
-    # reference reaches -0.73 m on the CPU at frame 100. A centre past the slab's
-    # mid-plane would be pushed out through the bottom by the hub plane.
     check(min_y > FLOOR_MID_Y, "a box fell through the floor")
 
-    # Kernel vs plain at the main path's shapes, on the collapsing pile: the
-    # frame path's call (one substep, default band and planes) ...
+    # Compact kernel vs plain at the main path's shapes: the frame path's call
+    # (one substep, default band and planes) ...
     spec = runner.scene.spec
     _, main_err = kernel_vs_plain("3: main-path call", ps, runner.physics_params, TOL_8, n_substeps=1)
+    main_call = lambda: mc.megakernel_substeps_compact(ps, runner.physics_params, DT, n_substeps=1)
+    compact_ms = cuda_ms(main_call, 20)
+    with plain_on_card(mc):
+        compact_plain_ms = cuda_ms(main_call, 3)
+    print(f"[3] main-path compact call (1 substep, B={ps.num_slots}): kernel {compact_ms:.3f} ms, "
+          f"plain {compact_plain_ms:.1f} ms ({card})", flush=True)
     # ... then whole runner frames. Each frame starts both sides from the same
     # state, the reference a copy of the runner whose compact calls go to the
-    # plain version (frame_step builds new tensors, never writes into the
-    # shared ones): the pile amplifies rounding-level differences from substep
-    # to substep, so frames run on free would compare the pile's sensitivity,
+    # plain version (frame_step and render build new tensors, never write into
+    # the shared ones): a pile amplifies rounding-level differences from
+    # substep to substep, so frames run on free would compare its sensitivity,
     # not the kernel.
     frame_err = {k: 0.0 for k in FIELDS + ("world",)}
     for _ in range(CMP_FRAMES):
@@ -198,10 +310,18 @@ def main() -> int:
         err["world"] = (runner.state.world - ref.state.world).abs().max().item()
         frame_err = {k: max(frame_err[k], e) for k, e in err.items()}
     print(f"[3] {CMP_FRAMES} runner frames (dt {DT:.6f} s, physics interval {spec.physics_interval:.6f} s), "
-          f"each from a shared state: kernel vs plain max abs err {frame_err}", flush=True)
+          f"each from a shared state: compact kernel vs plain max abs err {frame_err}", flush=True)
     for k, e in frame_err.items():
         check(e <= TOL_8, f"runner frames: {k} error {e}")
-    main_path_err = max(*main_err.values(), *frame_err.values())  # at the main path's shapes
+    compact_err = max(*main_err.values(), *frame_err.values())  # at the main path's shapes
+    b = ps.num_slots
+    main_pairs = band_coverage_report(ps)["pairs"]
+    compact_bound = bound(
+        (mc.N_SCALARS + (mc.N_ROWS + mc.N_OUT) * b) * 4,
+        # the broadphase's 128 band candidates per body, 6 compares each, and the SAT of each overlapping pair
+        b * 128 * 6 + main_pairs * COMPACT_OPS_PAIR,
+    )
+    print(f"[3] compact bound {compact_bound[0]:.3g} ms ({compact_bound[1]}; {main_pairs} overlapping pairs)")
 
     # ---- 4. the physics cell's shape ------------------------------------------
     ps = ps0
@@ -252,16 +372,100 @@ def main() -> int:
           f"{sleepy.sleep_velocity:.4f} m/s, in the speed gap {speeds[j].item():.4f}-{speeds[j + 1].item():.4f})")
     check(0 < n_asleep < int(dyn.sum()), "the sleeping call put no box, or every box, to sleep")
 
-    print(json.dumps({"kernels": [{
-        "name": "compact_substeps",
-        "route": "cuda",
-        "source": "oxylus_tpu_torch/physics/csrc/megakernel_compact.cu",
-        "replaces": "oxylus_tpu/physics/megakernel_compact.py:75",
-        "launches": launches,
-        "max_abs_err": main_path_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 5. raster and HiZ kernels vs plain at the main path's shapes ----------
+    raster_calls, hiz_calls, bin_calls = [], [], []
+    for _ in range(10):  # until a frame runs the late pass too
+        for calls in (raster_calls, hiz_calls, bin_calls):
+            calls.clear()
+        with capture(raster3d, "run_tiles", raster_calls), capture(hiz_ops, "build_hiz", hiz_calls), \
+                capture(renderer3d, "bin_triangles_per_tile", bin_calls):
+            runner.step()
+        if len(raster_calls) == 2:
+            break
+    raster_rows = []
+    for args in raster_calls:
+        entries, comb, counts, near_r, w, h = args
+        label = f"5: raster K2={entries.shape[1]}"
+        got = raster3d.run_tiles(*args)
+        want_d, want_v, want_g, rounds_run, covered = raster3d._raster_tiles_plain(*args)
+        torch.cuda.synchronize()
+        d_err = (got[0] - want_d).abs().max().item()
+        g_err = (got[2].float() - want_g.float()).abs().max().item()
+        vid_diff = int((got[1] != want_v).sum())
+        bits_diff = int((got[2].view(torch.int16) != want_g.view(torch.int16)).sum())
+        hit = got[1] >= 0
+        n_hit = int(hit.sum())
+        v = got[1][hit].long()
+        win_rows = torch.unique(entries[v >> 8, v & 255]).numel()
+        ref_rows = torch.unique(entries[entries >= 0]).numel()
+        ms = cuda_ms(lambda: raster3d.run_tiles(*args), 20)
+        plain = cuda_ms(lambda: raster3d._raster_tiles_plain(*args), 2)
+        rounds = int(rounds_run.sum())
+        real = int(torch.minimum(counts, rounds_run * raster3d.TILE_ROUND).sum())  # entries of the rounds run
+        n_cov = int(covered.sum())
+        bd = bound(
+            (entries.numel() + counts.numel() + near_r.numel() + ref_rows * 15 + win_rows * 64) * 4 + w * h * 40,
+            real * 4096 * RASTER_OPS_ENTRY_PIXEL + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT,
+        )
+        print(f"[{label}] {entries.shape[0]} tiles, {int(counts.sum())} entries, {rounds} rounds run over {real} "
+              f"entries, {n_cov} covered (entry, pixel) pairs, {n_hit} hit pixels: kernel vs plain depth err "
+              f"{d_err}, gb err {g_err}, vid mismatches {vid_diff}, gb bit mismatches {bits_diff}; kernel {ms:.4f} "
+              f"ms, plain {plain:.2f} ms, bound {bd[0]:.4f} ms ({bd[1]}) ({card})", flush=True)
+        check(d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0, f"{label}: kernel != plain")
+        raster_rows.append((max(d_err, g_err), ms, plain, bd))
+    check(len(raster_rows) >= 1, "no raster call captured")
+    # What the widest triangle capacity the vid's 8-bit entry field allows
+    # would drop: the early pass binned again at K2 = 256, and the part of the
+    # drop that is the group stage's (meshlet-tile pairs past the
+    # `bin_groups_per_tile` cap), which K2 cannot help.
+    early_bin = bin_calls[0]
+    drop_wide = int(setup3d.bin_triangles_per_tile(*early_bin[:5], 256)[2])
+    drop_groups = int(setup3d.bin_meshlets_to_tiles(*early_bin[:5])[1])
+    print(f"[5] early pass binning drops: {int(setup3d.bin_triangles_per_tile(*early_bin)[2])} at "
+          f"K2={early_bin[5]}, {drop_wide} at K2=256, of which the group stage's {drop_groups} (at "
+          f"{early_bin[4]} groups per tile)", flush=True)
+
+    depth = hiz_calls[0][0]
+    got = hiz_ops.build_hiz(depth)
+    want = hiz_ops.hiz_reference(depth)
+    torch.cuda.synchronize()
+    check([tuple(m.shape) for m in got] == [tuple(m.shape) for m in want], "HiZ level shapes differ")
+    hiz_err = max((g - r).abs().max().item() for g, r in zip(got, want))
+    hiz_ms = cuda_ms(lambda: hiz_ops.build_hiz(depth), 50)
+    hiz_plain_ms = cuda_ms(lambda: hiz_ops.hiz_reference(depth), 10)
+    n_out = sum(m.numel() for m in got[1:])
+    hiz_bound = bound((got[0].numel() + n_out) * 4, 3 * n_out)
+    print(f"[5] HiZ of {tuple(depth.shape)} → {[tuple(m.shape) for m in got]}: kernel vs plain max abs err {hiz_err}; "
+          f"kernel {hiz_ms:.4f} ms, plain {hiz_plain_ms:.3f} ms, bound {hiz_bound[0]:.4f} ms ({card})", flush=True)
+    check(hiz_err == 0, "HiZ kernel != plain")
+
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    render = lambda: runner.renderer3d.render(
+        runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+        prev=runner.carry, static_lights=runner._static_lights,
+    )["final"]
+    img_k = render()
+    with plain_on_card(raster3d, hiz_ops):
+        img_p = render()
+    print(f"[5] one frame rendered with the kernels and with the plain versions from a shared state: PSNR "
+          f"{psnr(img_k, img_p)} dB, identical {bool(torch.equal(img_k, img_p))}", flush=True)
+    check(torch.equal(img_k, img_p), "kernel and plain frames differ")
+
+    def row(name, source, replaces, mod, err, ms, plain, bd):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+
+    early = raster_rows[0]
+    print(json.dumps({"kernels": [
+        row("compact_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_compact.cu",
+            "oxylus_tpu/physics/megakernel_compact.py:75", mc, compact_err, compact_ms, compact_plain_ms,
+            compact_bound),
+        row("raster_tiles", "oxylus_tpu_torch/ops/csrc/raster_tiles.cu", "oxylus_tpu/ops/raster3d.py:936",
+            raster3d, max(r[0] for r in raster_rows), early[1], early[2], early[3]),
+        row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
+            hiz_ms, hiz_plain_ms, hiz_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

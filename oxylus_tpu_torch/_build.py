@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `physics/csrc/` are compiled at first use with `nvcc` into a
-shared library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
-placed in `oxylus_tpu_torch/build/` (ignored by git), and loaded with ctypes.
-The library file is named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs at import:
-the CPU tests import every module on machines without `nvcc`.
+The sources under `physics/csrc/` and `ops/csrc/` are compiled at first use
+with `nvcc` (`-gencode arch=compute_90a,code=sm_90a`), one `nvcc` process per
+source, all started together, then linked into one shared library with a plain
+C interface in `oxylus_tpu_torch/build/` (ignored by git) and loaded with
+ctypes. The library file is named by a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing here runs at
+import: the CPU tests import every module on machines without `nvcc`.
 """
 
 from __future__ import annotations
@@ -18,14 +19,14 @@ import subprocess
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
-CSRC_DIR = PKG_DIR / "physics" / "csrc"
+CSRC_DIRS = (PKG_DIR / "physics" / "csrc", PKG_DIR / "ops" / "csrc")
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add contraction: products and sums round separately,
-    # as the plain PyTorch version's separate tensor ops do
+    # as the plain PyTorch versions' separate tensor ops do
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _LIB: ctypes.CDLL | None = None
@@ -38,28 +39,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]], verbose: bool) -> None:
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+        elif verbose:
+            print(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_kernel_library(verbose: bool = False) -> Path:
-    """Compile `physics/csrc/*.cu` (once per source hash) and return the .so path.
+    """Compile every `csrc/*.cu` (once per source hash) and return the .so path.
     With `verbose`, also print ptxas' register and spill report."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    sources = sorted(p for d in CSRC_DIRS for p in d.glob("*.cu"))
+    headers = sorted(p for d in CSRC_DIRS for p in d.glob("*.cuh"))
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     h = hashlib.sha256(" ".join(flags).encode())
     for p in sources + headers:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"liboxylus_kernels_{h.hexdigest()[:16]}.so"
+    digest = h.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"liboxylus_kernels_{digest}.so"
     if lib_path.exists() and not verbose:
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sources:
+        obj = obj_dir / f"{src.parent.parent.name}_{src.stem}.o"
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(procs, verbose)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))], False)
     os.replace(tmp, lib_path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path
 
 
@@ -75,5 +95,11 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.compact_error_string.restype = ctypes.c_char_p
         lib.compact_substeps.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, vp]
         lib.compact_substeps.restype = ci
+        lib.kernel_error_string.argtypes = [ci]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.raster_tiles.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.raster_tiles.restype = ci
+        lib.hiz_build.argtypes = [vp, ci, ci, ci, vp, vp]
+        lib.hiz_build.restype = ci
         _LIB = lib
     return _LIB

@@ -1,8 +1,10 @@
 """State carry-over between the JAX package and the port, through NumPy.
 
-`*_from_numpy` accepts the JAX package's `SceneState`, `PhysicsState` or
-`PhysicsParams` after `jax.device_get` (objects whose fields are NumPy arrays),
-or a plain dict with the same keys, and builds the port's tensors on `device`.
+`*_from_numpy` accepts the JAX package's `SceneState`, `PhysicsState`,
+`PhysicsParams`, `GPUScene` or `GPUMaterials` after `jax.device_get` (objects
+whose fields are NumPy arrays), or a plain dict with the same keys, and builds
+the port's tensors on `device`; a JAX `BakedMesh` (NumPy already) becomes the
+port's `BakedMesh`.
 `*_to_numpy` returns a dict of NumPy arrays with the JAX field names, ready for
 `dataclasses.replace(jax_state, **{k: jnp.asarray(v) ...})`. Dtypes are kept
 (bool, int32, uint32, uint64, float32), so a round trip is exact. This module
@@ -16,7 +18,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from .assets.bake import BakedMesh, LODData, MeshletData
+from .assets.material import GPU_MATERIAL_FIELDS, GPUMaterials
 from .physics.state import BODY_FIELDS, MESH_FIELDS, PhysicsParams, PhysicsState
+from .render.scene3d import GPU_SCENE_FIELDS, GPUScene
 from .scene.particles import ParticlePool
 from .scene.state import SceneState
 
@@ -102,3 +107,50 @@ def scene_state_to_numpy(st: SceneState) -> dict:
         "time": _np(st.time),
         "frame": _np(st.frame),
     }
+
+
+def gpu_scene_from_numpy(src: Any, device: torch.device | str = "cpu") -> GPUScene:
+    return GPUScene(**{name: _t(_get(src, name), device) for name in GPU_SCENE_FIELDS})
+
+
+def gpu_scene_to_numpy(gs: GPUScene) -> dict:
+    return {name: _np(getattr(gs, name)) for name in GPU_SCENE_FIELDS}
+
+
+def gpu_materials_from_numpy(src: Any, device: torch.device | str = "cpu") -> GPUMaterials:
+    """The JAX table's uint32 `flags` become int32 (every bit is below 2^10)."""
+    kw = {name: _t(_get(src, name), device) for name in GPU_MATERIAL_FIELDS}
+    kw["flags"] = kw["flags"].to(torch.int32)
+    return GPUMaterials(**kw)
+
+
+_MESHLET_FIELDS = (
+    "vertex_offset", "vertex_count", "triangle_offset", "triangle_count", "indirect_vertices",
+    "local_triangles", "center", "extent", "cone_axis", "cone_cutoff",
+)
+
+
+def baked_mesh_from_numpy(src: Any) -> BakedMesh:
+    lods = [
+        LODData(
+            meshlets=MeshletData(**{k: np.array(getattr(lod.meshlets, k), copy=True) for k in _MESHLET_FIELDS}),
+            index_count=int(lod.index_count), error=float(lod.error),
+        )
+        for lod in src.lods
+    ]
+    return BakedMesh(
+        positions=np.array(src.positions, copy=True), normals=np.array(src.normals, copy=True),
+        uvs=np.array(src.uvs, copy=True), lods=lods, aabb_min=np.array(src.aabb_min, copy=True),
+        aabb_max=np.array(src.aabb_max, copy=True), material=int(src.material),
+    )
+
+
+def baked_mesh_to_numpy(mesh: Any) -> dict:
+    """Every array of a BakedMesh (either package's) under a flat key."""
+    out = {k: np.asarray(getattr(mesh, k)) for k in ("positions", "normals", "uvs", "aabb_min", "aabb_max")}
+    for i, lod in enumerate(mesh.lods):
+        out[f"lod{i}.index_count"] = np.asarray(lod.index_count)
+        out[f"lod{i}.error"] = np.asarray(lod.error)
+        for k in _MESHLET_FIELDS:
+            out[f"lod{i}.{k}"] = np.asarray(getattr(lod.meshlets, k))
+    return out

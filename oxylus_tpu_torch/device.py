@@ -1,7 +1,9 @@
 """Explicit device resolution.
 
-The port never falls back: asking for `cuda` on a machine without a usable card
-raises, so a run that was meant for the GPU cannot quietly measure the CPU.
+The port runs on the card unless the caller asks for the CPU, and never falls
+back: asking for a card (explicitly, or by passing no device) on a machine
+without a usable one raises, so a run that was meant for the GPU cannot quietly
+measure the CPU.
 """
 
 from __future__ import annotations
@@ -10,9 +12,9 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """`None` → the CPU. `"cuda"`/`"cuda:N"` → that card, or `RuntimeError` when
-    PyTorch sees no card (or fewer than N+1)."""
-    dev = torch.device("cpu" if device is None else device)
+    """`None` or `"cuda"` → the first card, `"cuda:N"` → that card, each
+    `RuntimeError` when PyTorch sees no card (or fewer than N+1); `"cpu"` → the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was requested but torch.cuda.is_available() is false")

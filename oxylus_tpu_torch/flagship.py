@@ -16,7 +16,8 @@ from .scene.state import SceneSpec
 
 
 def build_flagship(n_boxes: int = 1022, n_piles: int = 1, spec_kw: dict | None = None, device=None) -> Scene:
-    """Build and start (`runtime_start`) the falling-boxes scene on `device`."""
+    """Build and start (`runtime_start`) the falling-boxes scene on `device`
+    (the card unless "cpu")."""
     kw = dict(max_entities=2048, max_bodies=1024, max_particles=1024)
     if spec_kw:
         kw.update(spec_kw)

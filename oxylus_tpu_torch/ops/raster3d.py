@@ -1,0 +1,305 @@
+"""Tile G-buffer raster (counterpart of the tile path of `oxylus_tpu/ops/raster3d.py`).
+
+Per 64×64 tile, the triangles binned to it (`setup3d.bin_triangles_per_tile`)
+are resolved in rounds of 64 entries, front to back: five plane evaluations per
+entry and pixel (edges e0 e1 e2, depth numerator zn, w denominator wd), a cover
+test, and a reverse-Z max over a packed key (z bits & ~127) | (127 − slot), with
+an early-out once every pixel of the tile is nearer than anything the
+remaining rounds can hold. Then the winner's 16 G-buffer lanes are evaluated
+per pixel. vid = tile·256 + entry, so `flat = (vid >> 8)·K2 + (vid & 255)`
+indexes the per-(tile, entry) slot tables.
+
+`rasterize_gbuffer_tiles` is the wrapper: for CPU tensors it runs the plain
+PyTorch version `rasterize_tiles_reference`; for CUDA tensors the hand-written
+kernel `csrc/raster_tiles.cu` (counted in `LAUNCHES`), or it raises. Both use
+the same operation order, so they agree bit for bit (nvcc -fmad=false).
+
+Plane values. The TPU kernel evaluates each plane at tile-local pixel centres
+(k + 0.5) with the tile-local constant c' = (c + a·x0) + b·y0, as a bf16 matmul
+of the hi/lo split of (a, b, c') against the exact pixel coordinates: every
+product is exact and the float32 sum runs a_hi·x + b_hi·y + c'_hi + a_lo·x +
+b_lo·y + c'_lo. The port computes exactly that sum (`_split_hilo`). Evaluating
+the planes in plain float32 instead changes the resolved depth (bits & ~127) on
+many covered pixels, because the hi/lo sum is only ~2^-17 accurate; this way
+the depth matches the JAX package. Phase B's attribute
+rows are evaluated in float32: the bf16 output absorbs the difference.
+
+The kernel's input is the shared per-slot row matrix `comb` from
+`build_tile_comb` and the entry lists: it reads each entry's row directly, so
+`pack_tile_blocks` gathers only the slot tables and the per-round nearest-z
+table, not the TPU kernel's per-(tile, round) plane blocks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+TILE = 64
+TILE_ROUND = 64   # entries resolved per round
+N_GB_ATTR = 16    # G-buffer lanes: [nrm xyz, uv, tangent xyz, alb rgb, metallic, roughness, emissive rgb]
+ATTR_W = 64       # per-slot attribute row: [a(16) | b(16) | c(16) | consts(16)]
+COMB_W = ATTR_W + 15 + 4  # comb row: attrB 64 | coeffs 15 | tz | material | instance | packed id
+PLANE_OFF = ATTR_W       # the 15 plane coefficients, plane-major (e0 e1 e2 zn wd) × (a b c)
+TILES_PER_CHUNK = 16     # plain version: tiles evaluated together
+
+LAUNCHES = 0
+
+
+def pack_gbuffer_coeff_matrix(attr_planes: Tensor, mat_consts: Tensor) -> Tensor:
+    """The attribute rows attrB (VM·R, 64) of the JAX function of this name: four
+    16-lane groups [a₀…a₇ ssₐ 0×7 | b₀…b₇ ss_b 0×7 | c₀…c₇ ss_c 0×7 | consts×8 0×8],
+    so attr = a·px + b·py + c evaluates the 8 perspective planes plus the
+    ss = Σeᵢ divisor in lane 8, and the fourth group carries the material
+    constants. Its phase-A plane matrix is MXU layout: the port's raster reads
+    the planes from the slot rows."""
+    vm, r = attr_planes.shape[0], attr_planes.shape[1]
+    ap = attr_planes[:, :, 1:9, :]
+    ssp = attr_planes[:, :, 0, :]
+    z7 = torch.zeros((vm, r, 7), dtype=ap.dtype, device=ap.device)
+    z8 = torch.zeros((vm, r, 8), dtype=ap.dtype, device=ap.device)
+    if mat_consts.dim() == 2:
+        consts = mat_consts[:, None, :].expand(vm, r, 8).to(ap.dtype)
+    else:
+        consts = mat_consts.to(ap.dtype)
+    attr_b = torch.cat(
+        [ap[..., 0], ssp[..., 0:1], z7, ap[..., 1], ssp[..., 1:2], z7, ap[..., 2], ssp[..., 2:3], z7, consts, z8],
+        dim=-1,
+    )
+    return attr_b.reshape(vm * r, ATTR_W)
+
+
+def build_tile_comb(dense: dict, consts: Tensor) -> Tensor:
+    """The per-slot row matrix every raster pass reads, (G·R, 83):
+    [attrB 64 | coeff 15 | tz | material | instance | packed id]. Built once per
+    frame from the full visible set and shared by the passes; a pass's entries
+    only reference slots valid in that pass, so sharing is exact."""
+    g, r = dense["tri_valid"].shape
+    attr_b = pack_gbuffer_coeff_matrix(dense["attr_planes"], consts)
+    parts = [
+        attr_b.reshape(g, r, ATTR_W),
+        dense["coeffs"].reshape(g, r, 15),
+        dense["tri_z"][..., None],
+        dense["slot_material"].to(torch.float32)[..., None],
+        dense["slot_instance"].to(torch.float32)[..., None],
+        dense["packed_id"].to(torch.float32)[..., None],  # < 2^24, f32-exact
+    ]
+    return torch.cat(parts, dim=-1).reshape(g * r, COMB_W).contiguous()
+
+
+def pack_tile_blocks(entries: Tensor, comb: Tensor) -> dict:
+    """Per-(tile, entry) inputs of the raster and the downstream slot tables.
+
+    Returns dict:
+      entries (T, K2) i32 — flat slot ids into `comb` or -1
+      comb    (G·R, 83) f32 — the shared slot rows (not copied)
+      near_r  (T, ROUNDS) i32 — suffix-max nearest-z bit patterns per round
+      tables  (material, instance, packed_id) per (tile, entry), each (T·K2,),
+              equal to the JAX package's
+    """
+    t_n, k2 = entries.shape
+    if k2 % TILE_ROUND != 0 or k2 > 256:
+        raise ValueError(f"k2 = {k2}: must be a multiple of 64 and at most 256 (vid's entry field is 8 bits)")
+    rounds = k2 // TILE_ROUND
+    have = entries >= 0
+    d = comb[torch.clamp(entries, min=0).reshape(-1).long(), PLANE_OFF + 15 :]  # (T·K2, 4)
+    tz_e = torch.where(have, d[:, 0].reshape(t_n, k2), -1.0)
+    near_round = torch.clamp(tz_e, min=0.0).reshape(t_n, rounds, TILE_ROUND).max(-1).values
+    near_sfx = torch.flip(torch.cummax(torch.flip(near_round, [1]), 1).values, [1])
+    tables = (
+        torch.where(have, d[:, 1].reshape(t_n, k2).to(torch.int32), 0).reshape(-1),
+        torch.where(have, d[:, 2].reshape(t_n, k2).to(torch.int32), 0).reshape(-1),
+        torch.where(have, d[:, 3].reshape(t_n, k2).to(torch.int32), -1).reshape(-1),
+    )
+    return {
+        "entries": entries.to(torch.int32).contiguous(),
+        "comb": comb,
+        "near_r": near_sfx.contiguous().view(torch.int32),
+        "tables": tables,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _tile_local_pixels(device) -> tuple[Tensor, Tensor]:
+    lin = torch.arange(TILE * TILE, device=device)
+    return (lin % TILE).to(torch.float32) + 0.5, torch.div(lin, TILE, rounding_mode="floor").to(torch.float32) + 0.5
+
+
+def _split_hilo(x: Tensor) -> tuple[Tensor, Tensor]:
+    """x ≈ hi + lo with hi = bf16(x) and lo = bf16(x − hi), both round to nearest even."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _raster_tiles_plain(entries: Tensor, comb: Tensor, counts: Tensor, near_r: Tensor, width: int, height: int):
+    """Plain version, vectorised over (tiles, 64 entries, 4096 pixels) in chunks
+    of TILES_PER_CHUNK tiles, in the kernel's operation order. Returns
+    (depth, vid, gb, rounds_run (T,) i32, covered (T,) i64), the last two the
+    rounds each tile ran and the covered (entry, pixel) pairs in them, which
+    measure the work this input needs."""
+    dev = entries.device
+    t_n, k2 = entries.shape
+    rounds = k2 // TILE_ROUND
+    tx = (width + TILE - 1) // TILE
+    ty = (height + TILE - 1) // TILE
+    xl, yl = _tile_local_pixels(dev)
+    slot_code = (127 - torch.arange(TILE_ROUND, dtype=torch.int32, device=dev))[None, :, None]
+    depth_t = torch.empty((t_n, TILE * TILE), dtype=torch.float32, device=dev)
+    vid_t = torch.empty((t_n, TILE * TILE), dtype=torch.int32, device=dev)
+    gb_t = torch.empty((t_n, TILE * TILE, N_GB_ATTR), dtype=torch.bfloat16, device=dev)
+    rounds_run = torch.zeros(t_n, dtype=torch.int32, device=dev)
+    covered = torch.zeros(t_n, dtype=torch.int64, device=dev)
+    for c0 in range(0, t_n, TILES_PER_CHUNK):
+        c1 = min(c0 + TILES_PER_CHUNK, t_n)
+        tg = torch.arange(c0, c1, device=dev)
+        x0 = ((tg % tx) * TILE).to(torch.float32)[:, None, None]
+        y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None, None]
+        rounds_n = torch.div(counts[c0:c1] + TILE_ROUND - 1, TILE_ROUND, rounding_mode="floor")
+        key = torch.zeros((c1 - c0, TILE * TILE), dtype=torch.int32, device=dev)
+        vid = torch.full((c1 - c0, TILE * TILE), -1, dtype=torch.int32, device=dev)
+        active = torch.ones(c1 - c0, dtype=torch.bool, device=dev)
+        for r0 in range(rounds):
+            dmin = key.min(1).values & ~127
+            active = active & (r0 < rounds_n) & (dmin < near_r[c0:c1, min(r0, rounds - 1)])
+            rounds_run[c0:c1] += active.to(torch.int32)
+            ent = entries[c0:c1, r0 * TILE_ROUND : (r0 + 1) * TILE_ROUND]  # (C, 64)
+            co = comb[torch.clamp(ent, min=0).long(), PLANE_OFF : PLANE_OFF + 15]
+            co = torch.where((ent >= 0)[..., None], co, 0.0).reshape(c1 - c0, TILE_ROUND, 5, 3)
+            a, b, c = co[..., 0], co[..., 1], co[..., 2]  # (C, 64, 5)
+            c = torch.where((ent >= 0)[..., None] | (torch.arange(5, device=dev) > 0), c, -1e30)
+            cp = (c + x0 * a) + y0 * b  # tile-local constant
+            (a_h, a_l), (b_h, b_l), (c_h, c_l) = (_split_hilo(v[..., None]) for v in (a, b, cp))
+            e = ((((a_h * xl + b_h * yl) + c_h) + a_l * xl) + b_l * yl) + c_l  # (C, 64, 5, PIX)
+            e0, e1, e2, zn, wd = e.unbind(2)
+            m = torch.minimum(torch.minimum(e0, e1), e2)
+            q = torch.minimum(torch.minimum(m, zn), torch.minimum(wd - zn, wd - 1e-30))
+            cover = q >= 0
+            covered[c0:c1] += (cover & active[:, None, None]).sum((1, 2))
+            z = zn * (1.0 / torch.clamp(wd, min=1e-30))
+            zi = (z.view(torch.int32) & ~127) | slot_code
+            keyk = torch.where(cover, zi, -1).max(1).values  # (C, PIX)
+            better = (keyk > key) & active[:, None]
+            won = (tg[:, None] * 256 + r0 * TILE_ROUND + (127 - (keyk & 127))).to(torch.int32)
+            vid = torch.where(better, won, vid)
+            key = torch.where(better, keyk, key)
+        depth_t[c0:c1] = (key & ~127).view(torch.float32)
+        vid_t[c0:c1] = vid
+
+        # phase B: the winner's attribute row, evaluated at global pixel centres
+        hit = vid >= 0
+        entry = torch.where(hit, vid - tg[:, None].to(torch.int32) * 256, 0).long()
+        row = torch.gather(entries[c0:c1].long(), 1, entry)
+        row = torch.where(hit, row, 0).clamp(min=0)
+        attr = comb[row, :ATTR_W]  # (C, PIX, 64)
+        attr = torch.where(hit[..., None], attr, 0.0)
+        px = (x0[:, :, 0] + xl)[..., None]
+        py = (y0[:, :, 0] + yl)[..., None]
+        lanes = (attr[..., 0:16] * px + attr[..., 16:32] * py) + attr[..., 32:48]
+        ssb = lanes[..., 8:9]
+        rw = 1.0 / torch.where(torch.abs(ssb) > 1e-12, ssb, 1.0)
+        gb_t[c0:c1, :, 0:8] = (lanes[..., 0:8] * rw).to(torch.bfloat16)
+        gb_t[c0:c1, :, 8:16] = attr[..., 48:56].to(torch.bfloat16)
+
+    def untile(a):
+        a = a.reshape(ty, tx, TILE, TILE, *a.shape[2:]).transpose(1, 2)
+        return a.reshape(ty * TILE, tx * TILE, *a.shape[4:])[:height, :width].contiguous()
+
+    return untile(depth_t), untile(vid_t), untile(gb_t), rounds_run, covered
+
+
+def rasterize_tiles_reference(entries, comb, counts, near_r, width, height):
+    """The plain PyTorch version of the CUDA kernel: (depth, vid, gb)."""
+    return _raster_tiles_plain(entries, comb, counts, near_r, width, height)[:3]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _raster_tiles_cuda(entries, comb, counts, near_r, width, height):
+    """Launch `raster_tiles` on PyTorch's current stream. Raises on a build or
+    launch error; never falls back."""
+    from .._build import load_kernel_library
+
+    lib = load_kernel_library()
+    t_n, k2 = entries.shape
+    dev = entries.device
+    for name, t, dt in (("entries", entries, torch.int32), ("comb", comb, torch.float32),
+                        ("counts", counts, torch.int32), ("near_r", near_r, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous {dt} tensor on {dev}")
+    if comb.dim() != 2 or comb.shape[1] != COMB_W or near_r.shape != (t_n, k2 // TILE_ROUND) or counts.shape != (t_n,):
+        raise ValueError("bad raster input shapes")
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    vid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    gb = torch.empty((height, width, N_GB_ATTR), dtype=torch.bfloat16, device=dev)
+    err = lib.raster_tiles(
+        entries.data_ptr(), comb.data_ptr(), counts.data_ptr(), near_r.data_ptr(),
+        t_n, k2, width, height, depth.data_ptr(), vid.data_ptr(), gb.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"raster_tiles launch failed: {lib.kernel_error_string(err).decode()}")
+    return depth, vid, gb
+
+
+def run_tiles(entries, comb, counts, near_r, width, height):
+    """Device dispatch: the CUDA kernel for tensors on a card (counted in
+    `LAUNCHES`), the plain version for tensors on the CPU, nothing else."""
+    global LAUNCHES
+    if entries.is_cuda:
+        out = _raster_tiles_cuda(entries, comb, counts, near_r, width, height)
+        LAUNCHES += 1
+        return out
+    if entries.device.type == "cpu":
+        return rasterize_tiles_reference(entries, comb, counts, near_r, width, height)
+    raise ValueError(f"no raster implementation for device {entries.device}")
+
+
+def rasterize_gbuffer_tiles(blocks: dict, counts: Tensor, width: int, height: int, tile: int = TILE):
+    """The tile raster over `pack_tile_blocks` output. Returns (depth (H, W) f32
+    reverse-Z, vid (H, W) i32 = tile·256 + entry or -1, gb (H, W, 16) bf16)."""
+    if tile != TILE:
+        raise NotImplementedError(f"tile={tile}: the port's raster takes 64-px tiles")
+    tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    if blocks["entries"].shape[0] != tx * ty:
+        raise ValueError(f"{blocks['entries'].shape[0]} tiles for a {width}×{height} image")
+    return run_tiles(blocks["entries"], blocks["comb"], counts.to(torch.int32).contiguous(),
+                     blocks["near_r"], width, height)
+
+
+def gbuffer_from_raster(gb: Tensor, vid: Tensor, depth: Tensor, inv_view_proj: Tensor) -> dict[str, Tensor]:
+    """Unpack the (H, W, 16) bf16 attribute image into the G-buffer dict; world
+    position is reconstructed from the f32 depth through the inverse
+    view-projection."""
+    hit = vid >= 0
+    hitf = hit[..., None]
+    g = lambda sl: gb[sl].to(torch.float32)
+    nrm = g((..., slice(0, 3)))
+    nrm = nrm / torch.clamp(torch.sqrt(torch.sum(nrm * nrm, dim=-1, keepdim=True)), min=1e-9)
+    h, w = depth.shape
+    ndc_x = (torch.arange(w, dtype=torch.float32, device=depth.device)[None, :] + 0.5) * (2.0 / w) - 1.0
+    ndc_y = (torch.arange(h, dtype=torch.float32, device=depth.device)[:, None] + 0.5) * (2.0 / h) - 1.0
+    m = inv_view_proj
+    hx = m[0, 0] * ndc_x + m[0, 1] * ndc_y + m[0, 2] * depth + m[0, 3]
+    hy = m[1, 0] * ndc_x + m[1, 1] * ndc_y + m[1, 2] * depth + m[1, 3]
+    hz = m[2, 0] * ndc_x + m[2, 1] * ndc_y + m[2, 2] * depth + m[2, 3]
+    hw = m[3, 0] * ndc_x + m[3, 1] * ndc_y + m[3, 2] * depth + m[3, 3]
+    inv_w = 1.0 / torch.where(torch.abs(hw) > 1e-12, hw, 1.0)
+    wpos = torch.stack([hx * inv_w, hy * inv_w, hz * inv_w], dim=-1)
+    return {
+        "hit": hit,
+        "world_pos": torch.where(hitf, wpos, 0.0),
+        "normal": torch.where(hitf, nrm, 0.0),
+        "uv": g((..., slice(3, 5))),
+        "tangent": torch.where(hitf, g((..., slice(5, 8))), 0.0),
+        "albedo": torch.where(hitf, g((..., slice(8, 11))), 0.0),
+        "metallic": torch.where(hit, g((..., 11)), 0.0),
+        "roughness": torch.where(hit, g((..., 12)), 1.0),
+        "emissive": torch.where(hitf, g((..., slice(13, 16))), 0.0),
+        "occlusion": torch.ones_like(depth),
+    }

@@ -1,17 +1,12 @@
-"""Where the time goes on the card, for the flagship's two shapes.
+"""Where the time goes on the card, for the flagship's physics shape.
 
     python -m oxylus_tpu_torch.profile_flagship
 
-Traces with `torch.profiler` (CUPTI) and prints, on labelled lines:
-
-- `physics`: CALLS 60-substep calls of the compact kernel with the bench's
-  adaptive band, after one warm-up call: device time per kernel (sum, count,
-  share), the total, and the host's kernel-launch calls;
-- `runner`: FRAMES frames of the headless runner on the flagship after 120
-  untraced frames (the pile has landed): host wall time per frame traced and
-  untraced, device busy time per frame (the sum of the device activities'
-  durations, one stream), its share of the traced and the untraced wall time,
-  and kernel launches per frame; the device activities grouped by name.
+Traces with `torch.profiler` (CUPTI) and prints, on labelled lines (`physics`),
+CALLS 60-substep calls of the compact kernel with the bench's adaptive band,
+after one warm-up call: device time per kernel (sum, count, share), the total,
+and the host's kernel-launch calls. The runner's frame is profiled by
+`profile_frame3d` (the headless runner with bodies runs an unported kernel).
 
 Needs a card; prints the card's name and power limit first.
 """
@@ -20,7 +15,6 @@ from __future__ import annotations
 
 import collections
 import subprocess
-import time
 
 import torch
 
@@ -28,10 +22,9 @@ from .flagship import build_flagship
 from .physics import megakernel_compact as mc
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
-from .runtime import SceneRunner
 
 DT = 1.0 / 60.0
-CALLS, FRAMES = 5, 30
+CALLS = 5
 
 
 def _device_events(prof) -> list:
@@ -47,7 +40,7 @@ def _table(tag: str, events: list, top: int) -> float:
     """Prints device time by activity name; returns the total in µs."""
     by_name: dict[str, list[float]] = collections.defaultdict(list)
     for e in events:
-        by_name[e.name.split("(")[0]].append(e.time_range.elapsed_us())
+        by_name[e.name.replace("(anonymous namespace)::", "").split("(")[0]].append(e.time_range.elapsed_us())
     total = sum(sum(v) for v in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, d in rows[:top]:
@@ -80,25 +73,6 @@ def main() -> None:
     print(f"physics device total: {total / 1e3:.3f} ms over {CALLS} calls = "
           f"{total / 1e3 / CALLS:.3f} ms per call (band {kw['band']}, planes {kw['n_planes']})")
     print(f"physics kernel launches: {_launches(prof)} for {CALLS} calls")
-
-    # --- runner frames ----------------------------------------------------------
-    runner = SceneRunner(build_flagship(device=dev), render_mode="none", use_megakernel=True)
-    runner.run(120)
-    t0 = time.perf_counter()
-    runner.run(FRAMES)
-    untraced = (time.perf_counter() - t0) / FRAMES
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        runner.run(FRAMES)
-        traced = (time.perf_counter() - t0) / FRAMES
-    events = _device_events(prof)
-    busy = _table("runner", events, top=12) / 1e3 / FRAMES
-    print(f"runner wall per frame: {untraced * 1e3:.3f} ms untraced, {traced * 1e3:.3f} ms traced "
-          f"({FRAMES} frames after 120)")
-    print(f"runner device busy per frame: {busy:.3f} ms = {100 * busy / (traced * 1e3):.1f} % of the traced, "
-          f"{100 * busy / (untraced * 1e3):.1f} % of the untraced wall time; "
-          f"{len(events) / FRAMES:.1f} device activities per frame")
-    print(f"runner kernel launches per frame: {_launches(prof) / FRAMES:.1f}")
 
 
 if __name__ == "__main__":

@@ -7,11 +7,10 @@ on the scene's device for the frame step, and runs the lifecycle the reference
 runs (`runtime_start` creates physics bodies from collider components —
 `Scene.cpp:1040-1072`). The host model is a copy of the JAX module's; only the
 device boundary (`to_device_state`, `sync_from_device`, `merge_host_edits`,
-`apply_pending_body_ops`) speaks torch. The device is chosen at construction
-(`Scene(..., device="cuda")`) and resolved strictly: no CPU fallback.
+`apply_pending_body_ops`) speaks torch. The device is chosen at construction:
+the card unless `device="cpu"` is given, resolved strictly (no CPU fallback).
 
-Not carried over: `renderer_config` and `copy()` (JSON round trip) — the
-renderer and the serializer are later slices.
+Not carried over: `copy()` (JSON round trip) — the serializer is a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core import uuid as uuidlib
+from ..core.config import RendererConfig
 from ..device import resolve_device
 from . import components as C
 from .state import SceneSpec, SceneState, _identity_worlds, compute_levels
@@ -145,6 +145,7 @@ class Scene:
             self._comp_data[cdef.name] = fields
 
         # lifecycle / configuration
+        self.renderer_config = RendererConfig()
         self.script_uuids: list[str] = []
         self.lua_systems: dict[str, Any] = {}
         # script-defined ECS systems/observers (the reference lets Lua scripts

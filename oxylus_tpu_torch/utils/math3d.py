@@ -2,9 +2,11 @@
 
 Same conventions as the JAX module: quaternions are (x, y, z, w), matrices are
 row-major and applied as `M @ v`, every function takes arbitrary leading batch
-dimensions with the component axis last. Only the functions the headless frame
-step uses are ported so far. Norms are written as `sqrt(sum(q*q))`, the form
-`jnp.linalg.norm` lowers to, so float32 results track the JAX module.
+dimensions with the component axis last. Only the functions the frame step,
+the camera, the culling chain and triangle setup use are ported. Norms are
+written as `sqrt(sum(q*q))`, the form `jnp.linalg.norm` lowers to, and the small
+matrix-vector contractions round as XLA's CPU dot does (`dot_fma`), so float32
+results track the JAX module.
 """
 
 from __future__ import annotations
@@ -129,3 +131,97 @@ def mat4_mul(a: Tensor, b: Tensor) -> Tensor:
     for k in range(a.shape[-1]):
         out = (out + a[..., :, k, None].double() * b[..., None, k, :].double()).float().double()
     return out.float()
+
+
+def dot_fma(a: Tensor, b: Tensor) -> Tensor:
+    """Σ_k a[..., k]·b[..., k] (broadcast) as a fused multiply-add chain over
+    k = 0, 1, …: the rounding of XLA's CPU dot for matrix-vector contractions.
+    Each step forms the product exactly in float64, adds, and rounds to float32."""
+    out = None
+    for k in range(a.shape[-1]):
+        p = a[..., k].double() * b[..., k].double()
+        out = p.float() if out is None else (out.double() + p).float()
+    return out
+
+
+def mat4_identity(shape=(), device=None) -> Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device).expand(tuple(shape) + (4, 4)).clone()
+
+
+def mat4_transform_point(m: Tensor, p: Tensor) -> Tensor:
+    return mat4_transform_dir(m, p) + m[..., :3, 3]
+
+
+def mat4_transform_dir(m: Tensor, d: Tensor) -> Tensor:
+    return dot_fma(m[..., :3, :3], d[..., None, :])
+
+
+def look_at(eye: Tensor, center: Tensor, up: Tensor) -> Tensor:
+    """Right-handed lookAt matching glm::lookAt."""
+    f = center - eye
+    f = f / torch.clamp(_norm(f), min=1e-12)
+    s = torch.linalg.cross(f, up)
+    s = s / torch.clamp(_norm(s), min=1e-12)
+    u = torch.linalg.cross(s, f)
+    m = mat4_identity(eye.shape[:-1], device=eye.device)
+    m[..., 0, :3] = s
+    m[..., 1, :3] = u
+    m[..., 2, :3] = -f
+    m[..., 0, 3] = -torch.sum(s * eye, dim=-1)
+    m[..., 1, 3] = -torch.sum(u * eye, dim=-1)
+    m[..., 2, 3] = torch.sum(f * eye, dim=-1)
+    return m
+
+
+def perspective_reverse_z(fov_y_rad: Tensor, aspect, near, far) -> Tensor:
+    """Reversed-Z perspective with the Vulkan Y flip (glm::perspective(fov,
+    aspect, far, near), then proj[1][1] *= -1). Depth: far → 0, near → 1."""
+    tan_half = torch.tan(fov_y_rad / 2.0)
+    z_near, z_far = far, near
+    m = torch.zeros(fov_y_rad.shape + (4, 4), dtype=torch.float32, device=fov_y_rad.device)
+    m[..., 0, 0] = 1.0 / (aspect * tan_half)
+    m[..., 1, 1] = -(1.0 / tan_half)
+    m[..., 2, 2] = z_far / (z_near - z_far)
+    m[..., 2, 3] = -(z_far * z_near) / (z_far - z_near)
+    m[..., 3, 2] = -1.0
+    return m
+
+
+def ortho_reverse_z(left, right, bottom, top, near, far, device=None) -> Tensor:
+    """Reversed-Z ortho with swapped planes and the Y flip."""
+    z_near, z_far = far, near
+    m = torch.zeros((4, 4), dtype=torch.float32, device=device)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = -(2.0 / (top - bottom))
+    m[2, 2] = -1.0 / (z_far - z_near)
+    m[2, 3] = -z_near / (z_far - z_near)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = (top + bottom) / (top - bottom)
+    m[3, 3] = 1.0
+    return m
+
+
+def aabb_transform(m: Tensor, bmin: Tensor, bmax: Tensor) -> tuple[Tensor, Tensor]:
+    """Transform an AABB by an affine matrix → world AABB (Arvo's method)."""
+    center = (bmin + bmax) * 0.5
+    extent = (bmax - bmin) * 0.5
+    new_center = mat4_transform_point(m, center)
+    new_extent = dot_fma(torch.abs(m[..., :3, :3]), extent[..., None, :])
+    return new_center - new_extent, new_center + new_extent
+
+
+def frustum_planes_from_mat(vp: Tensor) -> Tensor:
+    """The 6 normalized frustum planes (a, b, c, d) of a projection·view matrix,
+    (..., 6, 4); inside ⇔ dot(plane.xyz, p) + plane.w ≥ 0."""
+    r0, r1, r2, r3 = vp[..., 0, :], vp[..., 1, :], vp[..., 2, :], vp[..., 3, :]
+    planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r2, r3 - r2], dim=-2)
+    return planes / torch.clamp(_norm(planes[..., :3]), min=1e-12)
+
+
+def aabb_vs_frustum(planes: Tensor, bmin: Tensor, bmax: Tensor) -> Tensor:
+    """Conservative AABB-in-frustum test. planes (..., 6, 4); bmin/bmax (..., 3) → bool."""
+    center = (bmin + bmax) * 0.5
+    extent = (bmax - bmin) * 0.5
+    d = dot_fma(planes[..., :3], center[..., None, :]) + planes[..., 3]
+    r = dot_fma(torch.abs(planes[..., :3]), extent[..., None, :])
+    return torch.all(d + r >= 0.0, dim=-1)

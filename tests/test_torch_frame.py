@@ -31,9 +31,10 @@ from oxylus_tpu_torch.runtime import SceneRunner
 from oxylus_tpu_torch.scene import frame as tframe
 from oxylus_tpu_torch.scene import particles as tparticles
 from oxylus_tpu_torch.scene import state as tstate
-from oxylus_tpu_torch.scene.scene import Scene as TScene
+from oxylus_tpu_torch.scene.scene import Scene as _TScene
 
 torch.set_num_threads(1)
+TScene = functools.partial(_TScene, device="cpu")  # the port defaults to the card
 
 DT = 1.0 / 40.0
 N_FRAMES = 3
@@ -126,33 +127,67 @@ def test_frame_step_world_and_clocks_match_jax(jax_frames, port_frames):
     _assert_pool_equal(jst.particles, st["particles"])
 
 
-def test_runner_runs_the_frame_step(port_frames, jax_frames):
-    """SceneRunner(render_mode="none", use_megakernel=True) on the CPU gives the
-    frame step's state exactly, and so stays within the JAX bounds."""
+def _bodyless_pile():
     s = _pile_scene(TScene, tstate.SceneSpec)
-    runner = SceneRunner(s, render_mode="none", use_megakernel=True)
-    launches = tmc.LAUNCHES
+    for i in np.nonzero(s._alive)[0]:
+        for comp in ("RigidBodyComponent", "BoxColliderComponent"):
+            if s._comp_mask[comp][i]:
+                s.remove_component(int(i), comp)
+    s.runtime_start()  # rebuild the physics state without the bodies
+    return s
+
+
+def test_runner_runs_the_frame_step():
+    """A body-less headless runner (`SceneRunner(render_mode="none")`) gives the
+    frame step's state exactly: particles, sprites and transforms. Scenes with
+    bodies take the 3D runner (test_torch_render3d.py) or raise below."""
+    want = _bodyless_pile()
+    assert not bool(want.physics_state.active.any())
+    state, ps = want.to_device_state(), want.physics_state
+    for _ in range(N_FRAMES):
+        state, ps = tframe.frame_step(state, ps, PhysicsParams(), DT, want.spec, has_bodies=False)
+    runner = SceneRunner(_bodyless_pile(), render_mode="none", use_megakernel=True, device="cpu")
     runner.run(N_FRAMES, dt=DT)
-    assert tmc.LAUNCHES == launches  # CPU tensors: the plain version, no kernel launch
-    got = bridge.physics_state_to_numpy(runner.ps)
-    for field in ("pos", "linvel", "angvel", "quat"):
-        np.testing.assert_array_equal(got[field], port_frames[1][field])
-        np.testing.assert_allclose(got[field], np.asarray(getattr(jax_frames[1], field)), rtol=0, atol=ATOL[field])
-    np.testing.assert_array_equal(bridge.scene_state_to_numpy(runner.state)["world"], port_frames[0]["world"])
+    got = bridge.scene_state_to_numpy(runner.state)
+    ref = bridge.scene_state_to_numpy(state)
+    np.testing.assert_array_equal(got["world"], ref["world"])
+    np.testing.assert_array_equal(got["time"], ref["time"])
+    for k, v in ref["particles"].items():
+        np.testing.assert_array_equal(got["particles"][k], v, err_msg=k)
     host = runner.sync_to_host()
-    np.testing.assert_array_equal(
-        host._comp_data["RigidBodyComponent"]["translation"][:64], port_frames[0]["comp"]["RigidBodyComponent"]["translation"]
-    )
+    np.testing.assert_array_equal(host._comp_data["TransformComponent"]["position"][:64],
+                                  ref["comp"]["TransformComponent"]["position"])
 
 
 def test_runner_refuses_unported_routes():
+    """Routes whose physics the JAX runner runs through an unported kernel raise,
+    naming it: the headless `use_megakernel` branch runs the dense kernel, the
+    rest the XLA substep."""
     s = _pile_scene(TScene, tstate.SceneSpec)
+    with pytest.raises(NotImplementedError, match="physics/step.py"):
+        SceneRunner(s, use_megakernel=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="physics/megakernel.py::_kernel"):
+        SceneRunner(s, render_mode="none", use_megakernel=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        SceneRunner(s, use_megakernel=False)
+        SceneRunner(s, use_megakernel=True, track_contacts=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        SceneRunner(s, render_mode="3d", use_megakernel=True)
-    with pytest.raises(NotImplementedError):
-        SceneRunner(s, use_megakernel=True, track_contacts=True)
+        SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")
+    with pytest.raises(ValueError):  # the scene lives on the CPU
+        SceneRunner(s, render_mode="3d", use_megakernel=True, device="meta")
+    # a 3D runner steps its physics in the fused frame only; without a camera, or
+    # with render=False, the JAX runner takes the headless branch
+    from oxylus_tpu_torch.frame5 import cube_mesh
+    from oxylus_tpu_torch.assets.bake import bake_mesh
+
+    meshes = [bake_mesh(*cube_mesh())]
+    with pytest.raises(NotImplementedError, match="particle"):
+        SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=meshes, device="cpu")
+    for i in np.nonzero(s._comp_mask["ParticleSystemComponent"])[0]:
+        s.remove_component(int(i), "ParticleSystemComponent")
+    runner = SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=meshes, device="cpu")
+    for render in (False, True):
+        with pytest.raises(NotImplementedError, match="physics/megakernel.py::_kernel"):
+            runner.step(DT, render=render)
 
 
 def _assert_pool_equal(jpool, tpool, skip_pos_rows=None):

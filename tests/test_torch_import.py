@@ -25,6 +25,23 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.physics.megakernel_banded",
     "oxylus_tpu_torch.physics.megakernel_compact",
     "oxylus_tpu_torch.profile_flagship",
+    "oxylus_tpu_torch.profile_frame3d",
+    "oxylus_tpu_torch.frame5",
+    "oxylus_tpu_torch.core.config",
+    "oxylus_tpu_torch.assets.bake",
+    "oxylus_tpu_torch.assets.native",
+    "oxylus_tpu_torch.assets.material",
+    "oxylus_tpu_torch.render.renderer2d",
+    "oxylus_tpu_torch.render.camera",
+    "oxylus_tpu_torch.render.scene3d",
+    "oxylus_tpu_torch.render.pbr",
+    "oxylus_tpu_torch.render.postfx",
+    "oxylus_tpu_torch.render.renderer3d",
+    "oxylus_tpu_torch.ops.compact",
+    "oxylus_tpu_torch.ops.cull",
+    "oxylus_tpu_torch.ops.setup3d",
+    "oxylus_tpu_torch.ops.raster3d",
+    "oxylus_tpu_torch.ops.hiz",
 ]
 
 PROBE = f"""
@@ -47,15 +64,37 @@ def test_port_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
-def test_cuda_request_without_card_raises():
-    """Device resolution never falls back to the CPU."""
+def test_cuda_request_without_card_raises(monkeypatch):
+    """Device resolution defaults to the card and never falls back to the CPU."""
     import pytest
     import torch
 
     from oxylus_tpu_torch.device import resolve_device
 
-    assert resolve_device(None) == torch.device("cpu")
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the no-card branch cannot be exercised")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError):
+            resolve_device(device)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Scene, build_flagship, build_frame5_scene and SceneRunner resolve
+    `device=None` to the card: without one they raise instead of using the CPU."""
+    import pytest
+    import torch
+
+    from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.scene.scene import Scene
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
-        resolve_device("cuda")
+        Scene("s")
+    with pytest.raises(RuntimeError):
+        build_flagship(8)
+    with pytest.raises(RuntimeError):
+        build_frame5_scene(64, 64, n_objects=2, n_boxes=2)
+    with pytest.raises(RuntimeError):
+        SceneRunner(Scene("s", device="cpu"))

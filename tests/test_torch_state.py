@@ -3,6 +3,7 @@ schema registry, `to_device_state`, `build_physics_state`, transform
 propagation, and the slab-rank / hub-plane helpers of the compact kernel."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,11 +19,12 @@ from oxylus_tpu_torch import bridge
 from oxylus_tpu_torch.physics import megakernel_banded as tband
 from oxylus_tpu_torch.scene import components as TC
 from oxylus_tpu_torch.scene import state as tstate
-from oxylus_tpu_torch.scene.scene import Scene as TScene
+from oxylus_tpu_torch.scene.scene import Scene as _TScene
 
 from tests.test_megakernel_banded import _falling_boxes
 
 torch.set_num_threads(1)
+TScene = functools.partial(_TScene, device="cpu")  # the port defaults to the card
 
 
 def _hierarchy_scene(Scene, SceneSpec):
@@ -202,7 +204,7 @@ def test_build_physics_state_on_flagship_matches():
 
     kw = dict(max_entities=128, max_bodies=256, max_particles=64)
     want = jax.device_get(_build_flagship(n_boxes=100, spec_kw=kw).physics_state)
-    got = bridge.physics_state_to_numpy(build_flagship(100, spec_kw=kw).physics_state)
+    got = bridge.physics_state_to_numpy(build_flagship(100, spec_kw=kw, device="cpu").physics_state)
     for name in ("pos", "quat", "inv_mass", "inv_inertia", "half_extent", "friction", "active", "body_type"):
         np.testing.assert_array_equal(got[name], np.asarray(getattr(want, name)), err_msg=name)
 
