@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
-G-buffer raster and the HiZ pyramid) from the sources in this checkout and
-drives the port's main path on the card: the fused simulate-and-render 3D
-frame of the config-5 scene at its full size (1920×1080, 150 meshlet objects,
-255 falling boxes, capacity 512) with bodies made from a fixed seed. Every
-kernel-vs-plain check runs the kernel and its plain PyTorch version on the same
-card tensors; for the compact kernel both sides run its wrapper
-(`megakernel_substeps_compact`, with its sort and permutations).
+G-buffer raster, the HiZ pyramid and the dense rigid-body kernel) from the
+sources in this checkout and drives the port's paths on the card: the fused
+simulate-and-render 3D frame of the config-5 scene at its full size
+(1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), the
+headless dense runner on the flagship (1022 boxes, capacity 1024) and the
+default runner on `entry()`'s scene (255 boxes, capacity 512), with bodies
+made from a fixed seed. Every kernel-vs-plain check runs the kernel and its
+plain PyTorch version on the same card tensors through the kernel's wrapper
+(`megakernel_substeps_compact`, with its sort and permutations;
+`megakernel_substeps`).
 
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
@@ -34,7 +37,23 @@ card tensors; for the compact kernel both sides run its wrapper
    each wrapper timed with CUDA events; the early pass is binned again at
    K2 = 256, the most the vid's entry field holds, to report what that
    capacity would drop; then one frame is rendered with the kernels and with
-   the plain versions from a shared state, and the two images must be equal.
+   the plain versions from a shared state, and the two images must be equal;
+6. the dense kernel vs plain from the flagship's start state, 8 free-fall
+   substeps in one call (the contact half of this phase runs after phase 7,
+   on its pile);
+7. the headless dense runner, `SceneRunner(render_mode="none",
+   use_megakernel=True)` on the flagship: 2 warm-up frames, then 60 frames
+   with every launch count set to 0 just before; the dense kernel must have
+   launched, the state be finite and no box centre below the floor's
+   mid-plane; then 4 runner frames, each from a shared state, kernel vs plain;
+   then phase 6's contact check: one substep from the pile, kernel vs plain,
+   both timed, and the operations bound on that pile's pairs and points
+   (`megakernel.pair_work`);
+8. the default runner (`use_megakernel=False`, `physics_substep`) on
+   `entry()`'s scene with `max_pairs=2048`: 60 frames, the broadphase's
+   pairs and dropped pairs in every substep of them, the same state gates;
+   `entry()`'s own frame step for 2 frames; then a few frames with
+   `track_contacts=True`, counting the contact and activation callbacks.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -44,6 +63,7 @@ errors, times, bounds) and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -81,6 +101,22 @@ RASTER_OPS_HIT = 45  # per hit pixel: 9 lanes × (2 mul + 2 add), the reciprocal
 # two 23-operation extents, a 6-operation centre projection, 2 adds and a compare
 # (the solver's per-pair sweeps are not counted)
 COMPACT_OPS_PAIR = 330
+# Dense kernel: the work its function needs in one substep, on this run's
+# data. Positions do not move within a substep, so the AABB test (3 ×
+# subtract, abs, add, compare, then the dynamic and active tests) is needed
+# once per unordered pair and the contact geometry once per overlapping
+# ordered pair, by its kind: round/round 71, box/round 78, round/box 81,
+# box/box 599 (the face SAT 330, sign and normal 10, the incident face 32, the
+# reference box's extent 23, 4 clamped corners of 51). Per touching point, 44
+# operations once (lever arms, effective mass, bias) and 93 in every sweep
+# (relative velocity, normal and friction λ, impulse, both torques, the four
+# sums). Per-body work (gravity, pose, the sweeps' updates) is left out, so
+# the bound stays a lower bound.
+DENSE_OPS_TEST = 16
+DENSE_OPS_PAIR = {"round_round": 71, "box_round": 78, "round_box": 81, "box_box": 599}
+DENSE_OPS_POINT, DENSE_OPS_POINT_SWEEP = 44, 93
+ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
+EVENT_FRAMES = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -130,17 +166,23 @@ PLAIN_ROUTES = {
     "oxylus_tpu_torch.physics.megakernel_compact": ("run_compact", "compact_substeps_reference"),
     "oxylus_tpu_torch.ops.raster3d": ("run_tiles", "rasterize_tiles_reference"),
     "oxylus_tpu_torch.ops.hiz": ("build_hiz", "hiz_reference"),
+    "oxylus_tpu_torch.physics.megakernel": ("run_dense", "dense_substeps_reference"),
 }
 
 
 @contextlib.contextmanager
-def capture(mod, name: str, into: list, keep=lambda args: args):
-    """Record `keep(args)` of every call of `mod.name` while the block runs."""
+def capture(mod, name: str, into: list, keep=lambda args: args, result: bool = False):
+    """Record `keep(args)` of every call of `mod.name` while the block runs,
+    or with `result` `keep` of what the call returns."""
     fn = getattr(mod, name)
 
     def wrapped(*args, **kw):
-        into.append(keep(args))
-        return fn(*args, **kw)
+        if not result:
+            into.append(keep(args))
+        out = fn(*args, **kw)
+        if result:
+            into.append(keep(out))
+        return out
 
     setattr(mod, name, wrapped)
     try:
@@ -176,7 +218,10 @@ def main() -> int:
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.ops import hiz as hiz_ops
     from oxylus_tpu_torch.ops import raster3d, setup3d
+    from oxylus_tpu_torch.flagship import entry
+    from oxylus_tpu_torch.physics import megakernel as mk
     from oxylus_tpu_torch.physics import megakernel_compact as mc
+    from oxylus_tpu_torch.physics import step as pstep
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
     from oxylus_tpu_torch.physics.state import BODY_DYNAMIC, PhysicsParams
     from oxylus_tpu_torch.render import renderer3d
@@ -238,7 +283,7 @@ def main() -> int:
           f"{runner.renderer3d.spec}", flush=True)
     runner.run(MAIN_WARMUP)
     kernel_mods = (mc, raster3d, hiz_ops)
-    for mod in kernel_mods:
+    for mod in kernel_mods + (mk,):
         mod.LAUNCHES = 0
     # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
     counts, frames = [], []
@@ -451,6 +496,117 @@ def main() -> int:
           f"{psnr(img_k, img_p)} dB, identical {bool(torch.equal(img_k, img_p))}", flush=True)
     check(torch.equal(img_k, img_p), "kernel and plain frames differ")
 
+    # ---- 6. dense kernel vs plain from the flagship's start state ------------------
+    def dense_vs_plain(label, ps, n_substeps):
+        got = mk.megakernel_substeps(ps, params, DT, n_substeps=n_substeps)
+        with plain_on_card(mk):
+            want = mk.megakernel_substeps(ps, params, DT, n_substeps=n_substeps)
+        err = state_err(got, want)
+        print(f"[{label}] dense kernel vs plain max abs err {err}", flush=True)
+        check(all(bool(torch.isfinite(getattr(got, k)).all()) for k in FIELDS), f"{label}: kernel output not finite")
+        for k, e in err.items():
+            check(e <= TOL_8, f"{label}: {k} error {e}")
+        return err
+
+    dense_vs_plain("6: 8 free-fall substeps", ps0, 8)
+
+    # ---- 7. the headless dense runner on the flagship -----------------------------
+    flag = build_flagship(FLAGSHIP_BOXES, device=dev)
+    runner = SceneRunner(flag, render_mode="none", use_megakernel=True)
+    runner.run(MAIN_WARMUP)
+    all_mods = kernel_mods + (mk,)
+    for mod in all_mods:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner.run(MAIN_FRAMES)  # ends in a sync
+    wall = time.perf_counter() - t0
+    launches.update({mod.__name__: mod.LAUNCHES for mod in (mk,)})
+    path_launches = {mod.__name__: mod.LAUNCHES for mod in all_mods}
+    ps = runner.ps
+    dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
+    min_y = ps.pos[dyn, 1].min().item()
+    print(f"[7] headless dense runner: {MAIN_FRAMES} frames of {int(dyn.sum())} boxes (capacity {ps.num_slots}) in "
+          f"{wall:.3f} s = {MAIN_FRAMES / wall:.2f} frames/s ({card}); kernel launches {path_launches}; lowest box "
+          f"centre y = {min_y:.4f} m (floor slab: top 0 m, mid-plane -1 m)", flush=True)
+    check(path_launches[mk.__name__] > 0, "the headless dense runner never launched the dense kernel")
+    check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "dense runner state not finite")
+    check(min_y > FLOOR_MID_Y, "a box fell through the floor on the dense runner")
+    frame_err = {k: 0.0 for k in FIELDS + ("world",)}
+    for _ in range(CMP_FRAMES):
+        ref = copy.copy(runner)
+        runner.step()
+        with plain_on_card(mk):
+            ref.step()
+        err = state_err(runner.ps, ref.ps)
+        err["world"] = (runner.state.world - ref.state.world).abs().max().item()
+        frame_err = {k: max(frame_err[k], e) for k, e in err.items()}
+    print(f"[7] {CMP_FRAMES} dense runner frames, each from a shared state: kernel vs plain max abs err {frame_err}",
+          flush=True)
+    for k, e in frame_err.items():
+        check(e <= TOL_8, f"dense runner frames: {k} error {e}")
+
+    # phase 6's contact check, on the pile
+    pile = runner.ps
+    pile_err = dense_vs_plain("6: one substep from the phase-7 pile", pile, 1)
+    dense_call = lambda: mk.megakernel_substeps(pile, params, DT, n_substeps=1)
+    dense_ms = cuda_ms(dense_call, 20)
+    with plain_on_card(mk):
+        dense_plain_ms = cuda_ms(dense_call, 2)
+    work = mk.pair_work(pile)
+    n_points = work.pop("points")
+    b = pile.num_slots
+    iters = 10  # megakernel_substeps' default, which the runner uses
+    dense_bound = bound(
+        (mk.N_SCALARS + (mk.N_ROWS + mk.N_OUT) * b) * 4,
+        b * (b - 1) // 2 * DENSE_OPS_TEST + sum(n * DENSE_OPS_PAIR[k] for k, n in work.items())
+        + n_points * (DENSE_OPS_POINT + iters * DENSE_OPS_POINT_SWEEP),
+    )
+    print(f"[6] dense call (1 substep, B={b}, overlapping ordered pairs {work}, {n_points} touching points): "
+          f"kernel {dense_ms:.4f} ms, plain {dense_plain_ms:.2f} ms, bound {dense_bound[0]:.6f} ms "
+          f"({dense_bound[1]}) ({card})", flush=True)
+    dense_err = max(*pile_err.values(), *frame_err.values())
+
+    # ---- 8. the default runner on entry()'s scene ---------------------------------
+    entry_params = PhysicsParams(max_pairs=ENTRY_MAX_PAIRS)
+    escene = build_flagship(ENTRY_BOXES, spec_kw=dict(max_entities=512, max_bodies=ENTRY_CAPACITY), device=dev)
+    runner = SceneRunner(escene, render_mode="none", use_megakernel=False, physics_params=entry_params)
+    found = []  # pairs the broadphase found in every substep of the 60 frames (one reduction each)
+    t0 = time.perf_counter()
+    with capture(pstep, "broadphase_mask", found, keep=lambda mask: mask.sum(), result=True):
+        runner.run(MAIN_FRAMES)
+    wall = time.perf_counter() - t0
+    found = torch.stack(found).cpu()
+    dropped = (found - ENTRY_MAX_PAIRS).clamp(min=0)
+    ps = runner.ps
+    dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
+    min_y = ps.pos[dyn, 1].min().item()
+    print(f"[8] default runner (physics_substep) on entry()'s scene: {MAIN_FRAMES} frames of {int(dyn.sum())} boxes "
+          f"(capacity {ps.num_slots}) in {wall:.3f} s = {MAIN_FRAMES / wall:.2f} frames/s ({card}); broadphase "
+          f"pairs over its {len(found)} substeps: most {int(found.max())}, last {int(found[-1])}; dropped "
+          f"{int(dropped.sum())} in all, most {int(dropped.max())} in one substep (max_pairs {ENTRY_MAX_PAIRS}); "
+          f"lowest box centre y = {min_y:.4f} m", flush=True)
+    check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "default runner state not finite")
+    check(min_y > FLOOR_MID_Y, "a box fell through the floor on the default runner")
+    fn, (st, eps, eparams, edt) = entry(device=dev)
+    for _ in range(2):
+        st, eps = fn(st, eps, eparams, edt)
+    check(bool(torch.isfinite(eps.pos).all()) and int(st.frame) == 2, "entry()'s frame step")
+    counts = collections.Counter()
+
+    class EventCounter:  # a script system that counts the event callbacks
+        def __getattr__(self, name):
+            if name.startswith("on_contact_") or name.startswith("on_body_"):
+                return lambda *a: counts.update([name])
+            return lambda *a: None
+
+    escene.lua_systems["events"] = EventCounter()
+    tracked = SceneRunner(escene, render_mode="none", physics_params=entry_params, track_contacts=True)
+    tracked.state = runner.state
+    tracked.replace_physics_state(runner.ps)
+    tracked.run(EVENT_FRAMES)
+    print(f"[8] {EVENT_FRAMES} frames with track_contacts=True: callbacks {dict(sorted(counts.items()))}", flush=True)
+    check(counts["on_contact_added"] > 0 and counts["on_contact_persisted"] > 0, "no contact events on the pile")
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -465,6 +621,8 @@ def main() -> int:
             raster3d, max(r[0] for r in raster_rows), early[1], early[2], early[3]),
         row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
             hiz_ms, hiz_plain_ms, hiz_bound),
+        row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
+            "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -6,9 +6,11 @@ and never `jax`, not even transitively: host modules the slice needs are carried
 as copies (`scene/components.py`, `core/uuid.py`), because every import of
 `oxylus_tpu` pulls in JAX.
 
-Ported so far: the headless frame step (`scene/frame.py`, `runtime.py`) with the
-compact rigid-body kernel (`physics/megakernel_compact.py`, CUDA source in
-`physics/csrc/`).
+Ported so far: the fused simulate-and-render 3D frame (`runtime.py`,
+`scene/frame.py`, `render/`, `ops/`) with the compact rigid-body, tile raster
+and HiZ kernels, and the runner's separate-stage physics: the dense rigid-body
+kernel (`physics/megakernel.py`), the plain substep (`physics/step.py`) and
+contact events (`physics/events.py`). CUDA sources live in `*/csrc/`.
 """
 
 __version__ = "0.1.0"

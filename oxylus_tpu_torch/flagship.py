@@ -1,16 +1,22 @@
 """The flagship workload: the falling-boxes scene (counterpart of
-`__graft_entry__._build_flagship`).
+`__graft_entry__._build_flagship` and `entry`).
 
 A large static floor plus `n_boxes` unit-mass boxes (half extent 0.5) in a
 cubic grid with seeded jitter, RNG seed 7 and the same layout as the JAX
 package's function, so both packages make the same bodies. `n_piles > 1` spreads the
 boxes over locally dense piles along x (the 10k-body capacity workload).
+`entry()` is the repo's own frame step: 255 boxes at capacity 512 through
+`frame_step` with the XLA-style substep (`physics/step.py`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .device import resolve_device
+from .physics.state import PhysicsParams
+from .scene.frame import frame_step
 from .scene.scene import Scene
 from .scene.state import SceneSpec
 
@@ -57,3 +63,19 @@ def build_flagship(n_boxes: int = 1022, n_piles: int = 1, spec_kw: dict | None =
 
     scene.runtime_start()
     return scene
+
+
+def entry(device=None):
+    """Return `(fn, args)` for the flagship frame step, as
+    `__graft_entry__.entry()` does: `fn(state, ps, params, dt)` is `frame_step`
+    on the 255-box scene at capacity 512 with `PhysicsParams(max_pairs=2048)`
+    and the physics substep of `physics/step.py`."""
+    dev = resolve_device(device)
+    scene = build_flagship(n_boxes=255, spec_kw=dict(max_entities=512, max_bodies=512), device=dev)
+    spec = scene.spec
+
+    def fn(state, ps, params, dt):
+        return frame_step(state, ps, params, dt, spec)
+
+    dt = torch.tensor(1.0 / 60.0, dtype=torch.float32, device=dev)
+    return fn, (scene.to_device_state(), scene.physics_state, PhysicsParams(max_pairs=2048), dt)

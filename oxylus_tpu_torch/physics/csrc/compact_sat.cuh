@@ -54,7 +54,9 @@ __device__ __forceinline__ float proj_extent(const Body& B, float ax, float ay, 
          fabsf(ax * B.r[0][2] + ay * B.r[1][2] + az * B.r[2][2]) * B.h[2];
 }
 
-__device__ void pair_manifold(float dxc, float dyc, float dzc, const Body& A, const Body& B, Manifold& out) {
+// static: megakernel_dense.cu includes this header too, and each object file
+// keeps its own copy
+static __device__ void pair_manifold(float dxc, float dyc, float dzc, const Body& A, const Body& B, Manifold& out) {
   const float d[3] = {dxc, dyc, dzc};
   bool both_round = (A.box < 0.5f) && (B.box < 0.5f);
   bool a_box = A.box > 0.5f, b_box = B.box > 0.5f;

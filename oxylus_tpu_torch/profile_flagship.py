@@ -1,30 +1,40 @@
-"""Where the time goes on the card, for the flagship's physics shape.
+"""Where the time goes on the card, for the flagship's physics.
 
     python -m oxylus_tpu_torch.profile_flagship
 
-Traces with `torch.profiler` (CUPTI) and prints, on labelled lines (`physics`),
-CALLS 60-substep calls of the compact kernel with the bench's adaptive band,
-after one warm-up call: device time per kernel (sum, count, share), the total,
-and the host's kernel-launch calls. The runner's frame is profiled by
-`profile_frame3d` (the headless runner with bodies runs an unported kernel).
+Traces with `torch.profiler` (CUPTI) and prints on labelled lines, in turn:
 
-Needs a card; prints the card's name and power limit first.
+- `physics`: CALLS 60-substep calls of the compact kernel with the bench's
+  adaptive band, after one warm-up call: device time per kernel (sum, count,
+  share), the total, and the host's kernel-launch calls;
+- `dense-runner`: the headless dense runner
+  (`SceneRunner(render_mode="none", use_megakernel=True)`) on the flagship,
+  on its pile after WARM_FRAMES frames: FRAMES untraced frames, then FRAMES
+  traced; host wall time per frame, device busy time and its share, launches
+  per frame (host calls and dense-kernel wrapper calls), device time by name.
+
+The fused 3D frame is profiled by `profile_frame3d`. Needs a card; prints
+the card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import collections
 import subprocess
+import time
 
 import torch
 
 from .flagship import build_flagship
+from .physics import megakernel as mk
 from .physics import megakernel_compact as mc
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
+from .runtime import SceneRunner
 
 DT = 1.0 / 60.0
 CALLS = 5
+WARM_FRAMES, FRAMES = 62, 20
 
 
 def _device_events(prof) -> list:
@@ -48,15 +58,8 @@ def _table(tag: str, events: list, top: int) -> float:
     return total
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_flagship needs a card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
-    dev = torch.device("cuda", 0)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    # --- physics shape: 60-substep calls -------------------------------------
+def profile_physics(dev, acts) -> None:
+    """60-substep compact calls (the `physics` cell's shape)."""
     ps = build_flagship(device=dev).physics_state
     rep = band_coverage_report(ps)
     kw = dict(n_substeps=60, iterations=3, warm=0.7, geom_every=2,
@@ -73,6 +76,39 @@ def main() -> None:
     print(f"physics device total: {total / 1e3:.3f} ms over {CALLS} calls = "
           f"{total / 1e3 / CALLS:.3f} ms per call (band {kw['band']}, planes {kw['n_planes']})")
     print(f"physics kernel launches: {_launches(prof)} for {CALLS} calls")
+
+
+def profile_dense_runner(dev, acts) -> None:
+    """The headless dense runner's frames on the flagship pile."""
+    runner = SceneRunner(build_flagship(device=dev), render_mode="none", use_megakernel=True)
+    runner.run(WARM_FRAMES)
+    t0 = time.perf_counter()
+    runner.run(FRAMES)
+    untraced = (time.perf_counter() - t0) / FRAMES
+    calls0 = mk.LAUNCHES
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        runner.run(FRAMES)
+        traced = (time.perf_counter() - t0) / FRAMES
+    events = _device_events(prof)
+    busy = _table("dense-runner", events, top=15) / 1e3 / FRAMES
+    print(f"dense-runner wall per frame: {untraced * 1e3:.3f} ms untraced, {traced * 1e3:.3f} ms traced "
+          f"({FRAMES} frames after {WARM_FRAMES + FRAMES})")
+    print(f"dense-runner device busy per frame: {busy:.3f} ms = {100 * busy / (traced * 1e3):.1f} % of the traced, "
+          f"{100 * busy / (untraced * 1e3):.1f} % of the untraced wall time")
+    print(f"dense-runner launches per frame: {_launches(prof) / FRAMES:.1f} host launch calls, "
+          f"{(mk.LAUNCHES - calls0) / FRAMES:.2f} dense-kernel calls")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_flagship needs a card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+    dev = torch.device("cuda", 0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profile_physics(dev, acts)
+    profile_dense_runner(dev, acts)
 
 
 if __name__ == "__main__":

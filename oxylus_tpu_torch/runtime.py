@@ -3,20 +3,24 @@
 
 Routes as the JAX runner does:
 
-- `render_mode="3d"` with meshes and a camera: the fused frame
-  (`_step_render3d_fused`): `frame_step` (physics substeps through the compact
-  kernel when the scene is eligible and `use_megakernel` is set), camera, then
-  `RendererInstance.render`. `step` returns the image.
-- Otherwise the separate-stage path: with bodies and `use_megakernel` the JAX
-  runner runs its dense kernel (`physics/megakernel.py::_kernel`), without it the
-  XLA substep (`physics/step.py`); neither is ported, so both raise
-  NotImplementedError. Body-less scenes run `frame_step` without physics.
+- `render_mode="3d"` with meshes and a camera, when `step(render=True)`: the
+  fused frame (`_step_render3d_fused`): `frame_step` (physics substeps through
+  the compact kernel when `use_megakernel` is set and the scene is eligible,
+  `physics_substep` otherwise), camera, then `RendererInstance.render`. `step`
+  returns the image.
+- Otherwise the separate-stage path. With `use_megakernel`: a host-side 60 Hz
+  accumulator, one dense-kernel call (`physics/megakernel.py`) with that
+  frame's substep count, then body and character sync, interpolation,
+  particles, sprites and transforms (no character controller, as in the JAX
+  branch). Without it: `frame_step` with `physics_substep`.
+- With `track_contacts`, contact and activation callbacks every
+  `contact_events_every` frames, from one batched host read.
 
 Which implementation a kernel runs is picked inside its wrapper by the tensors'
 device: the CUDA kernel on a card, the plain version on the CPU. The runner
 runs on the card unless `device="cpu"` is given; the scene must live on the
-same device. Per-frame script hooks are carried over; audio, contact events,
-the 2D renderer and the unported render features raise.
+same device. Per-frame script hooks are carried over; audio, the 2D renderer
+and the unported render features raise.
 """
 
 from __future__ import annotations
@@ -32,15 +36,18 @@ from .assets.material import FLAG_ALPHA_MASK
 from .core import uuid as uuidlib
 from .core.config import RendererConfig
 from .device import resolve_device
+from .physics.events import ActivationTracker, ContactTracker, query_contacts
+from .physics.megakernel import megakernel_substeps
 from .physics.state import PhysicsParams
 from .render.camera import CameraMatrices, camera_from_state
 from .render.renderer2d import SpriteBatchBindings, default_bindings
 from .render.renderer3d import RenderSpec, RendererInstance
 from .render.scene3d import GPUScene, upload_meshes, worst_case_meshlet_instances
+from .scene import frame as _frame
 from .scene.frame import frame_step
+from .scene.particles import particle_update
 from .scene.scene import Scene
-
-DENSE_KERNEL = "physics/megakernel.py::_kernel"
+from .scene.state import propagate_transforms
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -58,6 +65,7 @@ class SceneRunner:
         render_mode: str = "none",  # "none" | "3d"
         use_megakernel: bool = False,
         track_contacts: bool = False,
+        contact_events_every: int = 1,
         meshes: list[BakedMesh] | None = None,
         render_spec: RenderSpec | None = None,
         bindings: SpriteBatchBindings | None = None,
@@ -72,8 +80,6 @@ class SceneRunner:
             raise ValueError(f"the scene lives on {scene.device}, the runner was asked for {dev}")
         if render_mode not in ("none", "3d"):
             raise _not_ported(f"render_mode={render_mode!r}")
-        if track_contacts:
-            raise _not_ported("contact-event tracking (physics/events.py)")
         if atmosphere is not None or enable_shadows:
             raise _not_ported("the atmosphere and shadows")
         has_audio = bool(
@@ -89,6 +95,11 @@ class SceneRunner:
         self.physics_params = physics_params or PhysicsParams()
         self.render_mode = render_mode
         self.use_megakernel = use_megakernel
+        # scripts that do not need per-frame contact events pay the extra
+        # narrowphase and host read only every N frames
+        self.contact_events_every = max(int(contact_events_every), 1)
+        self.contact_tracker = ContactTracker() if track_contacts else None
+        self.activation_tracker = ActivationTracker() if track_contacts else None
         self.config: RendererConfig = scene.renderer_config
         if not scene.running:
             scene.runtime_start()
@@ -99,9 +110,8 @@ class SceneRunner:
         self.last_frame = None
         self._script_accum = 0.0  # host mirror of the 60 Hz tick for on_fixed_update
         self._camera_idx: int | None = None
-        self._has_bodies = bool(self.ps.active.any())
-        if self._has_bodies and render_mode == "none":
-            self._refuse_separate_physics()
+        self._has_bodies: bool | None = None  # read from the state at the first frame that needs it
+        self._mega_accum: float | None = None  # host mirror of the accumulator (use_megakernel branch)
 
         self.gscene: GPUScene | None = None
         if render_mode == "3d" and meshes:
@@ -139,16 +149,6 @@ class SceneRunner:
         # lights covered by the unrolled PBR blocks: the scene's own lights
         self._static_lights = max(1, int(np.sum(scene._alive & scene._comp_mask["LightComponent"])))
 
-    def _refuse_separate_physics(self) -> None:
-        """The JAX runner's separate-stage physics: the dense kernel with
-        `use_megakernel`, the XLA substep without it. Neither is ported."""
-        if self.use_megakernel:
-            raise _not_ported(
-                f"the headless use_megakernel physics branch (the dense kernel {DENSE_KERNEL}, "
-                "runtime.py:322-369)"
-            )
-        raise _not_ported("the XLA physics substep (physics/step.py, use_megakernel=False)")
-
     # ------------------------------------------------------------------ camera
     def _resolve_camera_idx(self) -> int:
         """First alive camera entity index, resolved once on the host and cached."""
@@ -165,6 +165,19 @@ class SceneRunner:
 
     def invalidate_camera(self) -> None:
         self._camera_idx = None
+
+    def replace_physics_state(self, ps) -> None:
+        """Swap in externally built physics state (a loaded checkpoint, a spawn
+        path that activates bodies); the cached has-bodies flag is re-derived."""
+        self.ps = ps
+        self._has_bodies = None
+
+    def _bodies(self) -> bool:
+        """Whether any body is active: read once (one host read), as the JAX
+        runner decides once per scene whether the frame step has physics."""
+        if self._has_bodies is None:
+            self._has_bodies = bool(self.ps.active.any())
+        return self._has_bodies
 
     # ------------------------------------------------------------------ scripting
     def _script_frame_begin(self, dt: float) -> None:
@@ -209,19 +222,72 @@ class SceneRunner:
         self._script_frame_begin(dt)
         if self.scene._pending_body_ops and self.ps is not None:
             self.ps = self.scene.apply_pending_body_ops(self.ps, self.scene.spec.physics_interval)
+        image = None
         if render and self.render_mode == "3d" and self.gscene is not None and self._resolve_camera_idx() >= 0:
             image = self._step_render3d_fused(dt)
+        elif self.use_megakernel:
+            self._step_dense(dt)
         else:
-            if self._has_bodies:
-                self._refuse_separate_physics()
             self.state, self.ps = frame_step(
-                self.state, self.ps, self.physics_params, dt, self.scene.spec, has_bodies=False
+                self.state, self.ps, self.physics_params, dt, self.scene.spec, has_bodies=self._bodies()
             )
-            image = None
+        self._post_step_events()
         self.frame_index += 1
         self._script_frame_end(image)
         self.last_frame = image
         return image
+
+    def _step_dense(self, dt: float) -> None:
+        """The headless throughput branch (`runtime.py:322-369`): physics in one
+        dense-kernel call, then the frame's non-physics systems."""
+        spec = self.scene.spec
+        h = spec.physics_interval
+        # host-side 60 Hz accumulator: read from the state once, then kept here
+        acc = float(self.ps.accumulator) if self._mega_accum is None else self._mega_accum
+        acc += dt
+        nsub = min(int(acc // h), spec.max_substeps)
+        acc = min(acc - nsub * h, h)  # spiral-of-death clamp
+        self._mega_accum = acc
+        if nsub > 0:
+            self.ps = megakernel_substeps(self.ps, self.physics_params, h, n_substeps=nsub)
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
+        # rounded as the JAX runner rounds them (its cache of scalars)
+        self.ps = dataclasses.replace(self.ps, accumulator=f32(round(acc, 4)))
+        state = _frame.sync_bodies_to_components(self.state, self.ps)
+        state = _frame.sync_characters_to_components(state, self.ps)
+        state = _frame.physics_interpolate(state, self.ps, f32(round(acc / h, 3)))
+        state = particle_update(state, spec, f32(dt))
+        state = _frame.sprite_animation_update(state, f32(dt))
+        new_world = propagate_transforms(state, spec)
+        self.state = dataclasses.replace(
+            state, previous_world=state.world, world=new_world, time=state.time + dt, frame=state.frame + 1
+        )
+
+    def _post_step_events(self) -> None:
+        """Contact and activation script callbacks off the post-step physics
+        state, every `contact_events_every` frames."""
+        if self.contact_tracker is None or self.frame_index % self.contact_events_every != 0:
+            return
+        ent_a, ent_b, valid = query_contacts(self.ps, self.physics_params)
+        # one device→host transfer for both trackers
+        host = torch.cat([ent_a, ent_b, valid.int(), self.ps.asleep.int(), self.ps.entity.int()]).cpu().numpy()
+        p, b = ent_a.shape[0], self.ps.num_slots
+        ent_a, ent_b, valid = host[:p], host[p:2 * p], host[2 * p:3 * p] > 0
+        asleep, entity = host[3 * p:3 * p + b] > 0, host[3 * p + b:]
+        added, persisted, removed = self.contact_tracker.update_from_arrays(ent_a, ent_b, valid)
+        for system in self.scene.lua_systems.values():
+            for a, b_ in added:
+                system.on_contact_added(self.scene, a, b_)
+            for a, b_ in persisted:
+                system.on_contact_persisted(self.scene, a, b_)
+            for a, b_ in removed:
+                system.on_contact_removed(self.scene, a, b_)
+        act, deact = self.activation_tracker.update_from_arrays(asleep, entity)
+        for system in self.scene.lua_systems.values():
+            for e in act:
+                system.on_body_activated(self.scene, e)
+            for e in deact:
+                system.on_body_deactivated(self.scene, e)
 
     def _fused_mega_eligible(self) -> bool:
         """The compact kernel's shape conditions: single-collider bodies,
@@ -235,16 +301,14 @@ class SceneRunner:
         return not bool(ps.is_character.any())
 
     def _step_render3d_fused(self, dt: float):
-        """Simulate + camera + render (`runtime.py:539-582`)."""
-        physics_mega = self.use_megakernel and self._has_bodies and self._fused_mega_eligible()
-        if self._has_bodies and not physics_mega:
-            raise _not_ported(
-                "the XLA physics substep (physics/step.py), which the fused frame runs without "
-                "use_megakernel or for scenes the compact kernel does not take"
-            )
+        """Simulate + camera + render (`runtime.py:539-582`). The physics
+        substeps run the compact kernel with `use_megakernel` on eligible
+        scenes, `physics_substep` otherwise."""
+        has_bodies = self._bodies()
+        physics_mega = self.use_megakernel and has_bodies and self._fused_mega_eligible()
         self.state, self.ps = frame_step(
             self.state, self.ps, self.physics_params, dt, self.scene.spec,
-            has_bodies=self._has_bodies, physics_mega=physics_mega,
+            has_bodies=has_bodies, physics_mega=physics_mega,
         )
         camera = camera_from_state(self.state, self._camera_idx, self.width / self.height)
         ctx = self.renderer3d.render(

@@ -21,6 +21,7 @@ import torch
 
 from ..physics.megakernel_compact import megakernel_substeps_compact
 from ..physics.state import BODY_STATIC, PhysicsParams, PhysicsState
+from ..physics.step import physics_substep
 from ..utils import math3d
 from .particles import particle_update
 from .state import SceneSpec, SceneState, propagate_transforms
@@ -150,13 +151,11 @@ def step_physics_accumulated(
 ) -> tuple[PhysicsState, Tensor]:
     """Fixed-interval accumulator driving up to `max_substeps` 1/60 s substeps per
     frame (`Scene.cpp:720-729`). Returns (state, alpha). Reads the substep count
-    on the host (one sync per frame) and calls `substep_fn` that many times."""
-    if substep_fn is None:
-        raise NotImplementedError(
-            "the XLA physics substep (oxylus_tpu/physics/step.py) is not ported yet; "
-            "pass the compact kernel as substep_fn (frame_step(..., physics_mega=True))"
-        )
+    on the host (one sync per frame) and calls `substep_fn` that many times;
+    the default is `physics_substep` at the physics interval."""
     h = spec.physics_interval
+    if substep_fn is None:
+        substep_fn = lambda q: physics_substep(q, params, h)
     acc = ps.accumulator + dt
     nsub = int(torch.clamp(torch.floor(acc / h), max=spec.max_substeps))
     for _ in range(nsub):
@@ -176,10 +175,10 @@ def frame_step(
     has_bodies: bool = True,
     physics_mega: bool = False,
 ) -> tuple[SceneState, PhysicsState]:
-    """Advance the whole scene by one frame. `physics_mega=True` runs the physics
-    substeps through the compact kernel (`megakernel_substeps_compact`, one
-    call per substep with `n_substeps=1`, as the JAX fused path does);
-    `has_bodies=False` skips the physics stage."""
+    """Advance the whole scene by one frame. The physics substeps run
+    `physics_substep`, or with `physics_mega=True` the compact kernel
+    (`megakernel_substeps_compact`, one call per substep with `n_substeps=1`,
+    as the JAX fused path does); `has_bodies=False` skips the physics stage."""
     dt = torch.as_tensor(dt, dtype=torch.float32, device=state.device)
 
     # --- OnUpdate: physics

@@ -1,13 +1,24 @@
-"""The port's frame step and headless runner against the JAX `frame_step` with
-its compact kernel run in interpret mode (patched in for this module only).
+"""The port's frame step and runner against the JAX package.
 
 Scene: 40 boxes squeezed into a touching pile on the floor, some with pose
 interpolation, a child entity riding a box, a particle emitter and an animated
 sprite. dt = 1/40 s, so frames take one or two 60 Hz substeps and the
-interpolation alpha is fractional. Physics differs only through the TPU
-kernel's bf16 hi/lo partner gathers (see test_torch_megakernel_compact.py), so
-the same bounds apply: 5e-5 m, 1e-3 m/s, 5e-3 rad/s, 1e-4 on quaternions;
-world matrices 1e-4."""
+interpolation alpha is fractional.
+
+- `frame_step` with the compact kernel against the JAX `frame_step` with its
+  compact kernel run in interpret mode (patched in for this module only).
+  Physics differs only through the TPU kernel's bf16 hi/lo partner gathers
+  (see test_torch_megakernel_compact.py), so the same bounds apply: 5e-5 m,
+  1e-3 m/s, 5e-3 rad/s, 1e-4 on quaternions; world matrices 1e-4.
+- The runner's separate-stage routes against the JAX runner on the same pile
+  at capacity 128 without the emitter, frames of 1/60, 1/30 and 1/45 s (1, 2
+  and 1 substeps): the headless dense branch (the JAX runner interprets its
+  kernel), the default `use_megakernel=False` runner (`physics_substep`), and
+  a 3D runner's `step(render=False)`. Both sides compute the same float32
+  operations and differ in the order of sums: 1e-5 on every body field and on
+  world matrices (observed ≤ 1e-6). The accumulator matches exactly.
+- `entry()`'s frame step (255 boxes, capacity 512, `max_pairs=2048`) against
+  the JAX `entry()` for 2 frames, at the same bound."""
 
 import dataclasses
 import functools
@@ -43,8 +54,8 @@ COMP_ATOL = {"translation": 5e-5, "previous_translation": 5e-5, "rotation": 1e-4
              "previous_rotation": 1e-4, "position": 5e-5}
 
 
-def _pile_scene(Scene, SceneSpec):
-    s = Scene("pile", spec=SceneSpec(max_entities=64, max_bodies=256, max_particles=128))
+def _pile_scene(Scene, SceneSpec, max_bodies=256, emitter=True):
+    s = Scene("pile", spec=SceneSpec(max_entities=64, max_bodies=max_bodies, max_particles=128))
     floor = s.create_entity("floor")
     floor.add("TransformComponent", position=(0.0, -1.0, 0.0))
     floor.add("BoxColliderComponent", size=(12.0, 1.0, 12.0), friction=0.5)
@@ -61,9 +72,10 @@ def _pile_scene(Scene, SceneSpec):
     rider = s.create_entity("rider")
     rider.add("TransformComponent", position=(0.0, 0.6, 0.0), scale=(0.5, 0.5, 0.5))
     rider.child_of(boxes[37])
-    em = s.create_entity("emitter")
-    em.add("TransformComponent", position=(1.0, 2.0, 0.0))
-    em.add("ParticleSystemComponent", rate_over_time=10)  # first spawn at t = 0.1 s
+    if emitter:
+        em = s.create_entity("emitter")
+        em.add("TransformComponent", position=(1.0, 2.0, 0.0))
+        em.add("ParticleSystemComponent", rate_over_time=10)  # first spawn at t = 0.1 s
     sp = s.create_entity("sprite")
     sp.add("TransformComponent")
     sp.add("SpriteAnimationComponent", num_frames=8, fps=12, columns=4)
@@ -138,9 +150,9 @@ def _bodyless_pile():
 
 
 def test_runner_runs_the_frame_step():
-    """A body-less headless runner (`SceneRunner(render_mode="none")`) gives the
-    frame step's state exactly: particles, sprites and transforms. Scenes with
-    bodies take the 3D runner (test_torch_render3d.py) or raise below."""
+    """A body-less headless runner (`SceneRunner(render_mode="none")`, here on
+    its dense branch) gives the frame step's state exactly: particles, sprites
+    and transforms."""
     want = _bodyless_pile()
     assert not bool(want.physics_state.active.any())
     state, ps = want.to_device_state(), want.physics_state
@@ -159,35 +171,129 @@ def test_runner_runs_the_frame_step():
                                   ref["comp"]["TransformComponent"]["position"])
 
 
+RUNNER_DTS = (1.0 / 60.0, 1.0 / 30.0, 1.0 / 45.0)  # 1, 2 and 1 substeps
+RUNNER_ATOL = 1e-5
+ROUTES = {
+    "dense": dict(render_mode="none", use_megakernel=True),
+    "substep": dict(render_mode="none", use_megakernel=False),
+    "3d_render_false": dict(render_mode="3d", use_megakernel=True),
+}
+
+
+def _cube_meshes(bake):
+    from oxylus_tpu_torch.frame5 import cube_mesh
+
+    return [bake(*cube_mesh())]
+
+
+@pytest.fixture(scope="module", params=list(ROUTES))
+def runner_pair(request):
+    """The JAX runner and the port's, on the same pile, after RUNNER_DTS."""
+    from oxylus_tpu.assets.bake import bake_mesh as jbake
+    from oxylus_tpu.runtime import SceneRunner as JRunner
+    from oxylus_tpu_torch.assets.bake import bake_mesh
+
+    kw = ROUTES[request.param]
+    render = kw["render_mode"] == "none"
+    jkw, tkw = dict(kw), dict(kw)
+    if kw["render_mode"] == "3d":
+        jkw["meshes"], tkw["meshes"] = _cube_meshes(jbake), _cube_meshes(bake_mesh)
+    jr = JRunner(_pile_scene(JScene, jstate.SceneSpec, max_bodies=128, emitter=False), **jkw)
+    tr = SceneRunner(_pile_scene(TScene, tstate.SceneSpec, max_bodies=128, emitter=False), device="cpu", **tkw)
+    for dt in RUNNER_DTS:
+        jr.step(dt, render=render)
+        tr.step(dt, render=render)
+    return jax.device_get(jr.ps), jax.device_get(jr.state), bridge.physics_state_to_numpy(tr.ps), \
+        bridge.scene_state_to_numpy(tr.state)
+
+
+@pytest.mark.parametrize("field", ["pos", "linvel", "angvel", "quat", "prev_pos"])
+def test_runner_routes_match_jax(runner_pair, field):
+    jps, _, tps, _ = runner_pair
+    np.testing.assert_allclose(tps[field], np.asarray(getattr(jps, field)), rtol=0, atol=RUNNER_ATOL)
+
+
+def test_runner_routes_frame_state_matches_jax(runner_pair):
+    jps, jst, tps, tst = runner_pair
+    np.testing.assert_array_equal(tps["accumulator"], np.asarray(jps.accumulator))
+    np.testing.assert_allclose(tst["world"], np.asarray(jst.world), rtol=0, atol=RUNNER_ATOL)
+    for comp, field in (("RigidBodyComponent", "translation"), ("TransformComponent", "position"),
+                        ("TransformComponent", "rotation")):
+        np.testing.assert_allclose(tst["comp"][comp][field], np.asarray(jst.comp[comp][field]), rtol=0,
+                                   atol=RUNNER_ATOL, err_msg=f"{comp}.{field}")
+    np.testing.assert_array_equal(tst["time"], np.asarray(jst.time))
+    np.testing.assert_array_equal(tst["frame"], np.asarray(jst.frame))
+    # the premise: the pile is in contact (velocities are not free fall)
+    fall = -9.81 * 4 / 60.0
+    assert np.abs(np.asarray(jps.linvel)[1:41, 1] - fall).max() > 0.05
+
+
 def test_runner_refuses_unported_routes():
-    """Routes whose physics the JAX runner runs through an unported kernel raise,
-    naming it: the headless `use_megakernel` branch runs the dense kernel, the
-    rest the XLA substep."""
+    """What the port does not run yet raises: the 2D renderer, audio, the 3D
+    particle composite; a runner on another device than its scene is refused."""
     s = _pile_scene(TScene, tstate.SceneSpec)
-    with pytest.raises(NotImplementedError, match="physics/step.py"):
-        SceneRunner(s, use_megakernel=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="physics/megakernel.py::_kernel"):
-        SceneRunner(s, render_mode="none", use_megakernel=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        SceneRunner(s, use_megakernel=True, track_contacts=True, device="cpu")
     with pytest.raises(NotImplementedError):
         SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")
     with pytest.raises(ValueError):  # the scene lives on the CPU
         SceneRunner(s, render_mode="3d", use_megakernel=True, device="meta")
-    # a 3D runner steps its physics in the fused frame only; without a camera, or
-    # with render=False, the JAX runner takes the headless branch
-    from oxylus_tpu_torch.frame5 import cube_mesh
     from oxylus_tpu_torch.assets.bake import bake_mesh
 
-    meshes = [bake_mesh(*cube_mesh())]
     with pytest.raises(NotImplementedError, match="particle"):
-        SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=meshes, device="cpu")
-    for i in np.nonzero(s._comp_mask["ParticleSystemComponent"])[0]:
-        s.remove_component(int(i), "ParticleSystemComponent")
-    runner = SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=meshes, device="cpu")
-    for render in (False, True):
-        with pytest.raises(NotImplementedError, match="physics/megakernel.py::_kernel"):
-            runner.step(DT, render=render)
+        SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=_cube_meshes(bake_mesh), device="cpu")
+    audio = _pile_scene(TScene, tstate.SceneSpec, emitter=False)
+    e = audio.create_entity("speaker")
+    e.add("TransformComponent")
+    e.add("AudioSourceComponent")
+    with pytest.raises(NotImplementedError, match="audio"):
+        SceneRunner(audio, device="cpu")
+
+
+def test_fused_frame_runs_physics_substep_when_compact_is_not_eligible():
+    """A 3D runner whose scene the compact kernel cannot take (capacity 128)
+    steps its physics in the fused frame with `physics_substep`, as the JAX
+    runner does: its bodies equal `frame_step(..., physics_mega=False)`'s, and
+    the compact kernel is not called."""
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+
+    scene, kw = build_frame5_scene(64, 48, n_objects=4, n_boxes=20, max_bodies=128, device="cpu")
+    runner = SceneRunner(scene, **kw)
+    state, ps = runner.state, runner.ps  # frame_step makes new tensors, so these stay the start state
+    calls = []
+    orig = tframe.megakernel_substeps_compact
+    tframe.megakernel_substeps_compact = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    try:
+        for dt in (1.0 / 60.0, 1.0 / 30.0):
+            image = runner.step(dt)
+            state, ps = tframe.frame_step(state, ps, PhysicsParams(), dt, scene.spec, physics_mega=False)
+    finally:
+        tframe.megakernel_substeps_compact = orig
+    assert tuple(image.shape) == (48, 64, 3) and not calls
+    for field in ("pos", "linvel", "angvel", "quat"):
+        torch.testing.assert_close(getattr(runner.ps, field), getattr(ps, field), rtol=0, atol=0)
+    torch.testing.assert_close(runner.state.world, state.world, rtol=0, atol=0)
+
+
+def test_entry_frame_step_matches_jax(monkeypatch):
+    """The port's `entry()` against `__graft_entry__.entry()`, 2 frames."""
+    import __graft_entry__
+    from oxylus_tpu_torch.flagship import entry
+
+    # entry() would point JAX's persistent compile cache into the checkout for
+    # the rest of this test process
+    monkeypatch.setattr(__graft_entry__, "_enable_compile_cache", lambda: None)
+    jfn, (jst, jps, jparams, jdt) = __graft_entry__.entry()
+    jfn = jax.jit(jfn)
+    fn, (st, ps, params, dt) = entry(device="cpu")
+    assert params.max_pairs == jparams.max_pairs == 2048 and ps.num_slots == 512
+    for _ in range(2):
+        jst, jps = jfn(jst, jps, jparams, jdt)
+        st, ps = fn(st, ps, params, dt)
+    jps = jax.device_get(jps)
+    for field in ("pos", "linvel", "quat"):
+        np.testing.assert_allclose(getattr(ps, field).numpy(), np.asarray(getattr(jps, field)), rtol=0,
+                                   atol=RUNNER_ATOL, err_msg=field)
+    np.testing.assert_allclose(st.world.numpy(), np.asarray(jst.world), rtol=0, atol=RUNNER_ATOL)
+    np.testing.assert_array_equal(ps.accumulator.numpy(), np.asarray(jps.accumulator))
 
 
 def _assert_pool_equal(jpool, tpool, skip_pos_rows=None):

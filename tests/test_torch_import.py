@@ -24,6 +24,9 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.physics.build",
     "oxylus_tpu_torch.physics.megakernel_banded",
     "oxylus_tpu_torch.physics.megakernel_compact",
+    "oxylus_tpu_torch.physics.megakernel",
+    "oxylus_tpu_torch.physics.step",
+    "oxylus_tpu_torch.physics.events",
     "oxylus_tpu_torch.profile_flagship",
     "oxylus_tpu_torch.profile_frame3d",
     "oxylus_tpu_torch.frame5",
@@ -79,12 +82,12 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Scene, build_flagship, build_frame5_scene and SceneRunner resolve
+    """Scene, build_flagship, entry, build_frame5_scene and SceneRunner resolve
     `device=None` to the card: without one they raise instead of using the CPU."""
     import pytest
     import torch
 
-    from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.flagship import build_flagship, entry
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.runtime import SceneRunner
     from oxylus_tpu_torch.scene.scene import Scene
@@ -94,6 +97,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Scene("s")
     with pytest.raises(RuntimeError):
         build_flagship(8)
+    with pytest.raises(RuntimeError):
+        entry()
     with pytest.raises(RuntimeError):
         build_frame5_scene(64, 64, n_objects=2, n_boxes=2)
     with pytest.raises(RuntimeError):
