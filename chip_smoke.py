@@ -3,22 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
-G-buffer raster, the HiZ pyramid and the dense rigid-body kernel) from the
-sources in this checkout and drives the port's paths on the card: the fused
-simulate-and-render 3D frame of the config-5 scene at its full size
-(1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), the
-headless dense runner on the flagship (1022 boxes, capacity 1024) and the
-default runner on `entry()`'s scene (255 boxes, capacity 512), with bodies
-made from a fixed seed. Every kernel-vs-plain check runs the kernel and its
-plain PyTorch version on the same card tensors through the kernel's wrapper
-(`megakernel_substeps_compact`, with its sort and permutations;
-`megakernel_substeps`).
+G-buffer raster, the HiZ pyramid, the dense rigid-body kernel and the
+depth-only shadow raster) from the sources in this checkout and drives the
+port's paths on the card: the fused simulate-and-render 3D frame of the
+config-5 scene at its full size (1920×1080, 150 meshlet objects, 255 falling
+boxes, capacity 512), without the atmosphere, shadows, GTAO and SSR (phase 3)
+and whole (phase 9), the headless dense runner on the flagship (1022 boxes,
+capacity 1024) and the default runner on `entry()`'s scene (255 boxes,
+capacity 512), with bodies made from a fixed seed. Every kernel-vs-plain
+check runs the kernel and its plain PyTorch version on the same card tensors
+through the kernel's wrapper (`megakernel_substeps_compact`, with its sort and
+permutations; `megakernel_substeps`; `rasterize_depth`).
 
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
 2. compact kernel vs plain from the flagship's start state, for 8 and for 60
    substeps, with the bench's adaptive band and `n_planes=count_hub_planes`;
-3. main path: `SceneRunner(render_mode="3d", use_megakernel=True)` runs 2
+3. slice 2's main path: `SceneRunner(**build_frame5_scene(1920, 1080)[1])`
+   with the atmosphere, shadows, GTAO and SSR off runs 2
    warm-up frames, then 60 frames with every kernel's launch count set to 0
    just before; each kernel must have launched, the image be finite in [0, 1],
    the meshlet expansion may have dropped nothing (`expand_overflow`), no box
@@ -53,7 +55,21 @@ plain PyTorch version on the same card tensors through the kernel's wrapper
    `entry()`'s scene with `max_pairs=2048`: 60 frames, the broadphase's
    pairs and dropped pairs in every substep of them, the same state gates;
    `entry()`'s own frame step for 2 frames; then a few frames with
-   `track_contacts=True`, counting the contact and activation callbacks.
+   `track_contacts=True`, counting the contact and activation callbacks;
+9. the full config-5 frame, `SceneRunner(**build_frame5_scene(1920, 1080)[1])`
+   (atmosphere, page-cached clipmap shadows through the depth raster, GTAO,
+   SSR, aerial perspective): 2 warm-up frames, then 60 frames with every
+   launch count set to 0 just before; all four of its kernels must have
+   launched (the depth raster's launches per frame are printed), the image be
+   finite in [0, 1], `expand_overflow` 0, phase 3's binning-drop gate hold in
+   every frame and no box centre fall below y = -1 m. Then the depth raster
+   vs plain, exactly equal (depth bits and vid), on the inputs captured in the
+   first warm-up frame (no shadow cache: all six levels at the full tier) and
+   in the first timed frame that renders a level at the small tier; the six
+   full-tier calls timed with CUDA events against their plain versions and
+   their bound; and one frame rendered with the kernels and with the plain
+   versions from a shared state and carry (the carry one frame old, so shadow
+   pages re-render), which must be identical.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -66,6 +82,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -115,6 +132,12 @@ COMPACT_OPS_PAIR = 330
 DENSE_OPS_TEST = 16
 DENSE_OPS_PAIR = {"round_round": 71, "box_round": 78, "round_box": 81, "box_box": 599}
 DENSE_OPS_POINT, DENSE_OPS_POINT_SWEEP = 44, 93
+# Depth raster: per live (tile, entry) pair, per real triangle of its meshlet
+# and tile pixel, five planes × (4 mul + 5 add) of the hi/lo evaluation, the
+# 6 compares of the cover test and the first-max compare; per pair and pixel
+# the fold into the tile (compare, select)
+DEPTH_OPS_TRI_PIXEL, DEPTH_OPS_PAIR_PIXEL = 52, 2
+FULL_TIER, SMALL_TIER = 2048, 768  # the shadow levels' capacities (`render_shadow_clipmaps_cached`)
 ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
 EVENT_FRAMES = 4
 
@@ -167,6 +190,7 @@ PLAIN_ROUTES = {
     "oxylus_tpu_torch.ops.raster3d": ("run_tiles", "rasterize_tiles_reference"),
     "oxylus_tpu_torch.ops.hiz": ("build_hiz", "hiz_reference"),
     "oxylus_tpu_torch.physics.megakernel": ("run_dense", "dense_substeps_reference"),
+    "oxylus_tpu_torch.ops.raster_depth": ("rasterize_depth", "rasterize_depth_reference"),
 }
 
 
@@ -217,7 +241,7 @@ def main() -> int:
     from oxylus_tpu_torch.flagship import build_flagship
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.ops import hiz as hiz_ops
-    from oxylus_tpu_torch.ops import raster3d, setup3d
+    from oxylus_tpu_torch.ops import raster3d, raster_depth, setup3d
     from oxylus_tpu_torch.flagship import entry
     from oxylus_tpu_torch.physics import megakernel as mk
     from oxylus_tpu_torch.physics import megakernel_compact as mc
@@ -274,16 +298,18 @@ def main() -> int:
         plain_ms = cuda_ms(call60, 2)
     print(f"[2] 60-substep wrapper call at B={ps0.num_slots}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms ({card})")
 
-    # ---- 3. the main path: the fused 3D frame ----------------------------------
+    # ---- 3. slice 2's main path: the fused 3D frame without sky, shadows, GTAO, SSR
     t0 = time.perf_counter()
     scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    scene.renderer_config = dataclasses.replace(scene.renderer_config, vbgtao_enable=False, ssr_enable=False)
+    runner_kw.update(atmosphere=None, enable_shadows=False)
     runner = SceneRunner(scene, **runner_kw)
     print(f"[3] config-5 scene and runner built in {time.perf_counter() - t0:.2f} s; meshes baked by the "
           f"{bake_path()} path; {int(runner.ps.active.sum())} bodies, capacity {runner.ps.num_slots}; "
           f"{runner.renderer3d.spec}", flush=True)
     runner.run(MAIN_WARMUP)
     kernel_mods = (mc, raster3d, hiz_ops)
-    for mod in kernel_mods + (mk,):
+    for mod in kernel_mods + (mk, raster_depth):
         mod.LAUNCHES = 0
     # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
     counts, frames = [], []
@@ -514,7 +540,7 @@ def main() -> int:
     flag = build_flagship(FLAGSHIP_BOXES, device=dev)
     runner = SceneRunner(flag, render_mode="none", use_megakernel=True)
     runner.run(MAIN_WARMUP)
-    all_mods = kernel_mods + (mk,)
+    all_mods = kernel_mods + (mk, raster_depth)
     for mod in all_mods:
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -607,6 +633,126 @@ def main() -> int:
     print(f"[8] {EVENT_FRAMES} frames with track_contacts=True: callbacks {dict(sorted(counts.items()))}", flush=True)
     check(counts["on_contact_added"] > 0 and counts["on_contact_persisted"] > 0, "no contact events on the pile")
 
+    # ---- 9. the full config-5 frame ------------------------------------------------
+    t0 = time.perf_counter()
+    scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    cfg = runner.config
+    print(f"[9] full config-5 runner built in {time.perf_counter() - t0:.2f} s (sky LUTs included): atmosphere "
+          f"{runner.atmosphere is not None}, shadows {runner.enable_shadows}, GTAO {cfg.vbgtao_enable}, SSR "
+          f"{cfg.ssr_enable}", flush=True)
+    check(runner.atmosphere is not None and runner.enable_shadows and cfg.vbgtao_enable and cfg.ssr_enable,
+          "build_frame5_scene is not the full config 5")
+    first_calls, small_calls = [], []
+    with capture(raster_depth, "rasterize_depth", first_calls):
+        runner.step()  # the first frame: no shadow cache, all six levels at the full tier
+    runner.run(MAIN_WARMUP - 1)
+    full_mods = (mc, raster3d, hiz_ops, raster_depth)
+    for mod in full_mods + (mk,):
+        mod.LAUNCHES = 0
+    counts, frames, depth_per_frame, tiers = [], [], [], collections.Counter()
+    frame_calls: list = []
+    t0 = time.perf_counter()
+    with capture(raster3d, "run_tiles", counts, keep=lambda args: args[2]), \
+            capture(raster_depth, "rasterize_depth", frame_calls):
+        for _ in range(MAIN_FRAMES):
+            n0, d0 = len(counts), raster_depth.LAUNCHES
+            frame_calls.clear()
+            image = runner.step()
+            frames.append((runner.carry["bin_overflow"], n0))
+            depth_per_frame.append(raster_depth.LAUNCHES - d0)
+            tiers.update(args[0].shape[0] for args in frame_calls)
+            if not small_calls:
+                small_calls = [args for args in frame_calls if args[0].shape[0] == SMALL_TIER]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    full_launches = {mod.__name__: mod.LAUNCHES for mod in full_mods}
+    launches[raster_depth.__name__] = raster_depth.LAUNCHES
+    ps = runner.ps
+    dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
+    carry = runner.carry
+    ends = [n0 for _, n0 in frames[1:]] + [len(counts)]
+    drops = []
+    for (dropped, n0), n1 in zip(frames, ends):
+        pairs = sum(int(c.sum()) for c in counts[n0:n1])
+        drops.append((int(dropped) / max(pairs + int(dropped), 1), int(dropped), pairs))
+    worst = max(drops)
+    min_y = ps.pos[dyn, 1].min().item()
+    print(f"[9] full config-5 runner: {MAIN_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall:.3f} s = "
+          f"{MAIN_FRAMES / wall:.2f} frames/s ({card}); kernel launches {full_launches}; depth raster launches per "
+          f"frame {depth_per_frame}; depth raster calls by capacity ({FULL_TIER} full tier, {SMALL_TIER} small tier) "
+          f"{dict(tiers)}; expand_overflow {int(carry['expand_overflow'])}; binning drops worst "
+          f"{100 * worst[0]:.3f} % ({worst[1]} of {worst[1] + worst[2]} pairs); image mean "
+          f"{image.mean().item():.5f}; lowest box centre y = {min_y:.4f} m", flush=True)
+    for name, n in full_launches.items():
+        check(n > 0, f"the full config-5 frame never launched the {name} kernel")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(image.shape)}")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0 and image.max().item() <= 1.0,
+          "full frame: image not finite or outside [0, 1]")
+    check(int(carry["expand_overflow"]) == 0, "full frame: the meshlet expansion dropped work")
+    check(worst[0] <= BIN_DROP_GATE, f"full frame: binning dropped {100 * worst[0]:.3f} % of a frame's pairs")
+    check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "full frame: state not finite")
+    check(min_y > FLOOR_MID_Y, "full frame: a box fell through the floor")
+    check(len(first_calls) == 6 and all(a[0].shape[0] == FULL_TIER for a in first_calls),
+          f"the first frame's depth raster calls: {[tuple(a[0].shape) for a in first_calls]}")
+    check(len(small_calls) > 0, "no timed frame rendered a shadow level at the small tier")
+
+    def depth_vs_plain(label, args):
+        got = raster_depth.rasterize_depth(*args)
+        want = raster_depth.rasterize_depth_reference(*args)
+        torch.cuda.synchronize()
+        d_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+        v_diff = int((got[1] != want[1]).sum())
+        err = (got[0] - want[0]).abs().max().item()
+        work = raster_depth.live_work(args[0], args[1])
+        w, h = args[2], args[3]
+        n_bytes = work["meshlet_tris"] * 5 * 3 * 4 + args[1].numel() * 4 + w * h * 8
+        n_ops = work["pair_tris"] * 4096 * DEPTH_OPS_TRI_PIXEL + work["pairs"] * 4096 * DEPTH_OPS_PAIR_PIXEL
+        bd = bound(n_bytes, n_ops)
+        print(f"[{label}] coeff {tuple(args[0].shape)}, lists {tuple(args[1].shape)}, {work}: depth bit mismatches "
+              f"{d_bits}, vid mismatches {v_diff}, hit pixels {int((got[1] >= 0).sum())}; bound {bd[0]:.5f} ms "
+              f"({bd[1]})", flush=True)
+        check(d_bits == 0 and v_diff == 0, f"{label}: depth raster kernel != plain")
+        return err, n_bytes, n_ops
+
+    # the first frame's six levels: timed one by one, summed, bounded on their total work
+    depth_errs, depth_ms, depth_plain_ms, depth_bytes, depth_ops = [], 0.0, 0.0, 0, 0
+    for i, args in enumerate(first_calls):
+        err, n_bytes, n_ops = depth_vs_plain(f"9: depth raster, first frame, level {i}", args)
+        ms = cuda_ms(lambda: raster_depth.rasterize_depth(*args), 20)
+        plain = cuda_ms(lambda: raster_depth.rasterize_depth_reference(*args), 2)
+        print(f"[9] level {i}: kernel {ms:.4f} ms, plain {plain:.2f} ms ({card})", flush=True)
+        depth_errs.append(err)
+        depth_ms, depth_plain_ms = depth_ms + ms, depth_plain_ms + plain
+        depth_bytes, depth_ops = depth_bytes + n_bytes, depth_ops + n_ops
+    for i, args in enumerate(small_calls):
+        depth_errs.append(depth_vs_plain(f"9: depth raster, small tier, call {i}", args)[0])
+    depth_err = max(depth_errs)
+    depth_bound = bound(depth_bytes, depth_ops)
+    print(f"[9] depth raster, the first frame's six levels: kernel {depth_ms:.4f} ms, plain {depth_plain_ms:.2f} ms, "
+          f"bound {depth_bound[0]:.5f} ms ({depth_bound[1]}) ({card})", flush=True)
+
+    # one frame with the kernels and with the plain versions, from a shared
+    # state and a carry one frame old (the boxes moved: shadow pages re-render)
+    prev = runner.carry
+    runner.step()
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    render = lambda: runner.renderer3d.render(
+        runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+        prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
+        static_lights=runner._static_lights,
+    )["final"]
+    d0 = raster_depth.LAUNCHES
+    img_k = render()
+    rendered = raster_depth.LAUNCHES - d0
+    with plain_on_card(raster3d, hiz_ops, raster_depth):
+        img_p = render()
+    print(f"[9] one full frame rendered with the kernels ({rendered} depth raster launches) and with the plain "
+          f"versions from a shared state and carry: PSNR {psnr(img_k, img_p)} dB, identical "
+          f"{bool(torch.equal(img_k, img_p))}", flush=True)
+    check(rendered > 0, "the shared-carry frame rendered no shadow level")
+    check(torch.equal(img_k, img_p), "full frame: kernel and plain frames differ")
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -623,6 +769,8 @@ def main() -> int:
             hiz_ms, hiz_plain_ms, hiz_bound),
         row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
             "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
+        row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",
+            raster_depth, depth_err, depth_ms, depth_plain_ms, depth_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

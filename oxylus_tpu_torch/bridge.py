@@ -9,10 +9,17 @@ port's `BakedMesh`.
 `dataclasses.replace(jax_state, **{k: jnp.asarray(v) ...})`. Dtypes are kept
 (bool, int32, uint32, uint64, float32), so a round trip is exact. This module
 imports no JAX: the caller does the `device_get`.
+
+`atmosphere_from_jax` copies a JAX `AtmosphereParams` field by field, and
+`render_carry_from_numpy` / `render_carry_to_numpy` carry a renderer's frame
+carry (`prev`: the HiZ levels, the shadow cache, the sky and aerial LUTs and
+their keys, the static-frame memo's terms), so both packages can render one
+frame from a shared carry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -22,6 +29,7 @@ from .assets.bake import BakedMesh, LODData, MeshletData
 from .assets.material import GPU_MATERIAL_FIELDS, GPUMaterials
 from .physics.state import BODY_FIELDS, MESH_FIELDS, PhysicsParams, PhysicsState
 from .render.scene3d import GPU_SCENE_FIELDS, GPUScene
+from .render.sky import AtmosphereParams
 from .scene.particles import ParticlePool
 from .scene.state import SceneState
 
@@ -154,3 +162,31 @@ def baked_mesh_to_numpy(mesh: Any) -> dict:
         for k in _MESHLET_FIELDS:
             out[f"lod{i}.{k}"] = np.asarray(getattr(lod.meshlets, k))
     return out
+
+
+def atmosphere_from_jax(src: Any) -> AtmosphereParams:
+    """A JAX `AtmosphereParams` (or a dict of its fields) as the port's."""
+    kw = {}
+    for f in dataclasses.fields(AtmosphereParams):
+        v = _get(src, f.name)
+        kw[f.name] = tuple(float(x) for x in v) if isinstance(v, (tuple, list)) else float(v)
+    return AtmosphereParams(**kw)
+
+
+def render_carry_from_numpy(src: Any, device: torch.device | str = "cpu") -> Any:
+    """A renderer carry after `jax.device_get` (nested dicts, lists and tuples
+    of arrays) as tensors on `device`, the nesting kept."""
+    if isinstance(src, dict):
+        return {k: render_carry_from_numpy(v, device) for k, v in src.items()}
+    if isinstance(src, (list, tuple)):
+        return type(src)(render_carry_from_numpy(v, device) for v in src)
+    return _t(np.asarray(src), device)
+
+
+def render_carry_to_numpy(carry: Any) -> Any:
+    """The inverse of `render_carry_from_numpy`."""
+    if isinstance(carry, dict):
+        return {k: render_carry_to_numpy(v) for k, v in carry.items()}
+    if isinstance(carry, (list, tuple)):
+        return type(carry)(render_carry_to_numpy(v) for v in carry)
+    return _np(carry)

@@ -6,7 +6,9 @@ A camera at (0, 8, 30) pitched down, a sun, a 100×1×100 m box-collider floor,
 `n_boxes` dynamic unit boxes (half extent 0.5) in a cube over the floor with
 seeded jitter (seed 5), capacity 512 bodies: eligible for the compact kernel.
 The same seed and layout as the JAX builder, so both packages make the same
-scene. This slice renders it without the atmosphere, shadows, GTAO and SSR.
+scene. The runner renders the whole config-5 frame: the atmosphere
+(`AtmosphereParams()`), clipmap shadows, GTAO (on by default) and SSR, with
+the bench's raster settings.
 
     scene, runner_kw = build_frame5_scene(1920, 1080)
     runner = SceneRunner(scene, **runner_kw)
@@ -19,6 +21,7 @@ import numpy as np
 from .assets.bake import bake_mesh
 from .core.config import RendererConfig
 from .render.renderer3d import RenderSpec
+from .render.sky import AtmosphereParams
 from .scene.scene import Scene
 from .scene.state import SceneSpec
 
@@ -127,13 +130,14 @@ def build_frame5_scene(width: int = 1920, height: int = 1080, n_objects: int = 1
     (scene, SceneRunner keyword arguments)."""
     scene = Scene("full_frame", spec=SceneSpec(max_entities=1024, max_bodies=max_bodies), device=device)
     populate_frame5(scene, n_objects, n_boxes)
-    scene.renderer_config = RendererConfig(vbgtao_enable=False, ssr_enable=False)
+    scene.renderer_config = RendererConfig(ssr_enable=True)
     # the bench's raster settings: passthrough groups, 192 triangle entries and
     # 32 group candidates per tile
     spec = RenderSpec(width=width, height=height, compact_raster=False, tris_per_tile=192, bin_groups_per_tile=32)
     runner_kw = dict(
         width=width, height=height, render_mode="3d",
         meshes=[bake_mesh(*cube_mesh()), bake_mesh(*sphere_mesh(16, 32))],
-        render_spec=spec, use_megakernel=True, device=scene.device,
+        render_spec=spec, use_megakernel=True, atmosphere=AtmosphereParams(), enable_shadows=True,
+        device=scene.device,
     )
     return scene, runner_kw

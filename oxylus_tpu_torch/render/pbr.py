@@ -16,6 +16,7 @@ import math
 import torch
 
 from ..ops.compact import masked_compact
+from .sky import eval_sh_ambient
 
 Tensor = torch.Tensor
 
@@ -92,11 +93,11 @@ def apply_pbr(
     live_lights: int | None = None,
 ) -> Tensor:
     """Fullscreen lighting. `shadow` (H, W) multiplies the first directional
-    light; `ao` multiplies the ambient term. `live_lights` is `lights.count`
-    already read on the host (the renderer reads it before the raster, where
-    the read stalls least); None reads it here. Returns linear HDR (H, W, 3)."""
-    if ambient_color.dim() != 1:
-        raise NotImplementedError("SH ambient (the sky's irradiance) is not ported yet")
+    light; `ao` multiplies the ambient term. `ambient_color` is a flat (3,)
+    colour or (9, 3) SH-2 coefficients of the sky's irradiance. `live_lights`
+    is `lights.count` already read on the host (the renderer reads it before
+    the raster, where the read stalls least); None reads it here. Returns
+    linear HDR (H, W, 3)."""
     n = gbuffer["normal"]
     wp = gbuffer["world_pos"]
     albedo = gbuffer["albedo"][..., :3]
@@ -183,7 +184,10 @@ def apply_pbr(
         for b in range(static_lights // lb_w, (count + lb_w - 1) // lb_w):
             acc = light_block(b * lb_w, lb_w, acc, dyn_min=static_lights)
 
-    ambient = albedo * ambient_color[None, None, :]
+    if ambient_color.dim() == 2:  # (9, 3) SH coefficients → directional sky irradiance
+        ambient = albedo * eval_sh_ambient(ambient_color, n)
+    else:
+        ambient = albedo * ambient_color[None, None, :]
     if ao is not None:
         ambient = ambient * ao[..., None]
     hdr = acc + ambient + gbuffer["emissive"]

@@ -2,22 +2,32 @@
 `oxylus_tpu/render/renderer3d.py`).
 
 A fixed stage sequence with injectable before/after callbacks per stage and a
-named-resource dict passed between stages. This slice runs: culling (instance
-cull + LOD, meshlet expansion, meshlet cull sorted nearest first), triangle
-setup, the tile G-buffer raster with the two-pass HiZ occlusion protocol
-(early pass against the previous frame's pyramid, pyramid rebuild, late pass
-for what was revealed, merge, second rebuild), G-buffer unpack, PBR lighting
-with a constant ambient colour, bloom, tonemap and FXAA. Everything runs
-eagerly on the tensors' device.
+named-resource dict passed between stages. It runs: culling (instance cull +
+LOD, meshlet expansion, meshlet cull sorted nearest first), triangle setup, the
+tile G-buffer raster with the two-pass HiZ occlusion protocol (early pass
+against the previous frame's pyramid, pyramid rebuild, late pass for what was
+revealed, merge, second rebuild), G-buffer unpack, the atmosphere (sky LUTs
+cached per `AtmosphereParams`, sky-view LUT, background and SH-2 ambient),
+page-cached clipmap shadows with their resolve and contact shadows, GTAO,
+PBR lighting, SSR, aerial perspective, bloom, tonemap and FXAA. Everything
+runs eagerly on the tensors' device.
 
-Host reads per frame: the light count (read before the raster, where the read
-stalls least) and, with occlusion, whether anything was revealed
-(`jax.lax.cond(jnp.any(late_vis))` in the JAX graph).
+The JAX graph's device-side branches (`lax.cond` / `lax.switch`) are host
+decisions here, taken the same way. Host reads per frame: one at the top
+(the light count, and whether the static-frame key, the sun, the view and
+the aerial key moved since the carried frame), with occlusion one for
+whether anything was revealed, and with shadows one for the six clipmap
+levels' branches (`render/shadows.py`).
 
-Not ported yet, and refused with NotImplementedError: the atmosphere, shadows,
-GTAO, SSR, particles, texturing, alpha-masked materials, debug views, the
-group raster path and the non-kernel raster path. The static-frame memo only
-feeds shadows, GTAO and the aerial terms, so it waits with them.
+The static-frame memo reuses the shadow term, AO and the aerial apply on
+frames whose key (an xor of the world matrices' bit patterns, the sun, the
+camera's position, forward and up) equals the carried one. The key leaves out
+the camera's intrinsics and collides on swapped transforms, as in the JAX
+package (`tests/test_torch_render3d.py` names both).
+
+Not ported yet, and refused with NotImplementedError: particles, texturing,
+alpha-masked materials, debug views, the group raster path and the non-kernel
+raster path.
 """
 
 from __future__ import annotations
@@ -32,11 +42,20 @@ from ..ops import hiz as hiz_ops
 from ..ops import raster3d
 from ..ops.cull import cull_instances, cull_meshlets, expand_meshlet_instances
 from ..ops.setup3d import bin_triangles_per_tile, passthrough_bounds, passthrough_groups, setup_triangles
+from ..utils import math3d
+from ..utils.imgops import point_downsample as _pds
+from ..utils.imgops import resize_linear
+from . import gtao as gtao_ops
+from . import shadows
+from . import sky
 from .camera import CameraMatrices
 from .pbr import apply_pbr, lights_from_state
 from .postfx import adapt_exposure, apply_bloom, apply_fxaa, apply_tonemap, luminance_histogram
+from .ssr import apply_ssr
 
 Tensor = torch.Tensor
+
+METERS_PER_KM = 50.0  # aerial perspective: game-scale worlds, 50 units ≈ 1 km of air
 
 
 class RenderStage(enum.Enum):
@@ -81,10 +100,36 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to oxylus_tpu_torch yet")
 
 
+def world_signature(world: Tensor) -> Tensor:
+    """The xor of every int32 bit pattern of `world`, as a 0-d int32 tensor
+    (bit b of the result is the parity of bit b over all words)."""
+    bits = world.contiguous().view(torch.int32).reshape(-1)
+    shifts = torch.arange(32, dtype=torch.int32, device=world.device)
+    parity = ((bits[:, None] >> shifts) & 1).sum(0) & 1
+    val = (parity << shifts.to(torch.int64)).sum()  # [0, 2^32)
+    return ((val + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def static_frame_key(world: Tensor, sun_dir: Tensor, camera: CameraMatrices) -> Tensor:
+    """(13,) f32: the world signature's bits as a float, the sun, and the
+    camera's position, forward and up."""
+    sig = world_signature(world).reshape(1).view(torch.float32)
+    return torch.cat([sig, sun_dir, camera.position, camera.forward, camera.up])
+
+
 @dataclasses.dataclass
 class RendererInstance:
     spec: RenderSpec
     stage_callbacks: dict[tuple[RenderStage, str], list[StageCallback]] = dataclasses.field(default_factory=dict)
+    _sky_cache: dict = dataclasses.field(default_factory=dict)  # AtmosphereParams → (transmittance, multiscatter)
+
+    def sky_luts(self, atmosphere, device) -> tuple[Tensor, Tensor]:
+        """The transmittance and multiple-scattering LUTs of `atmosphere`,
+        built once and cached."""
+        if atmosphere not in self._sky_cache:
+            t_lut = sky.transmittance_lut(atmosphere, device=device)
+            self._sky_cache[atmosphere] = (t_lut, sky.multiscatter_lut(atmosphere, t_lut))
+        return self._sky_cache[atmosphere]
 
     def add_stage_callback(self, stage: RenderStage, when: str, cb: StageCallback) -> None:
         """Inject a pass before/after a stage."""
@@ -111,6 +156,8 @@ class RendererInstance:
         atmosphere=None,
         enable_shadows: bool = False,
         enable_gtao: bool | None = None,
+        sun_intensity: float = 10.0,
+        first_clipmap_width: float = 10.0,
         textured: bool = False,
         particles: bool = False,
         alpha_masked: bool = False,
@@ -122,8 +169,7 @@ class RendererInstance:
         if enable_gtao is None:
             enable_gtao = config.vbgtao_enable
         for on, what in (
-            (atmosphere is not None, "the atmosphere"), (enable_shadows, "shadows"), (enable_gtao, "GTAO"),
-            (config.ssr_enable, "SSR"), (particles, "the particle composite"), (textured, "texturing"),
+            (particles, "the particle composite"), (textured, "texturing"),
             (alpha_masked, "alpha-masked materials"), (bool(config.debug_view), "debug views"),
             (spec.raster_path != "tile", f"raster_path={spec.raster_path!r}"),
             (not spec.use_pallas, "the decode raster path (use_pallas=False)"),
@@ -140,14 +186,53 @@ class RendererInstance:
             "config": config, "width": w, "height": h,
         }
         ctx = self._run_cbs(RenderStage.INITIALIZATION, "after", ctx)
+        world = state.world
         lights = lights_from_state(state)
-        live_lights = int(lights.count)
+        # the first directional light drives the sun and the shadows
+        is_dir = (lights.kind == 0) & lights.valid
+        sun_dir = torch.where(torch.any(is_dir), lights.direction[torch.argmax(is_dir.to(torch.int32))],
+                              torch.tensor([0.0, -1.0, 0.0], device=dev))
+        is_persp = torch.abs(camera.projection[3, 2]) > 1e-8
+        inv_tan_half = torch.where(is_persp, torch.abs(camera.projection[1, 1]), 1.0)
+
+        # The frame's keys, and the one host read that takes every decision
+        # whose inputs are ready now: the light count, whether the static-frame
+        # key changed (None on a frame without it), and whether the sky LUT,
+        # the background and the aerial LUT must be recomputed. Each moved flag
+        # is True where the carried frame lacks the entry.
+        static_key_now = static_frame_key(world, sun_dir, camera)
+        carry["static_term_key"] = static_key_now
+        asks = {"static": ("static_term_key",)}
+        keys = {"static": static_key_now}
+        if atmosphere is not None:
+            si = torch.as_tensor(sun_intensity, dtype=torch.float32, device=dev).reshape(1)
+            sky_key_now = torch.cat([sun_dir, si])
+            cam_h_km = camera.position[1] / METERS_PER_KM
+            keys.update(
+                sky=sky_key_now, amb=sky_key_now,
+                bg=torch.cat([sky_key_now, camera.forward, camera.right, camera.up]),
+                aerial=torch.cat([sky_key_now, torch.round(cam_h_km * 16.0).reshape(1)]),
+            )
+            asks.update(sky=("sky_view_lut", "sky_key"), amb=("sky_ambient", "sky_key"),
+                        bg=("sky_background", "sky_cam_key"), aerial=("aerial_lut", "aerial_key"))
+        prev_key = {"static": "static_term_key", "sky": "sky_key", "amb": "sky_key", "bg": "sky_cam_key",
+                    "aerial": "aerial_key"}
+        flags = [lights.count.reshape(1).to(torch.int64)]
+        names = []
+        for name, need in asks.items():
+            if all(k in prev for k in need):
+                old = prev[prev_key[name]]
+                moved = torch.any(old != keys[name]) if name == "static" else torch.any(torch.abs(keys[name] - old) > 1e-7)
+                flags.append(moved.reshape(1).to(torch.int64))
+                names.append(name)
+        host = torch.cat(flags).tolist()
+        live_lights = host[0]
+        moved = {name: True for name in asks}
+        moved.update({name: bool(v) for name, v in zip(names, host[1:])})
+        static_dirty = moved["static"] if "static" in names else None
 
         # ---- Culling ------------------------------------------------------
         ctx = self._run_cbs(RenderStage.CULLING, "before", ctx)
-        world = state.world
-        is_persp = torch.abs(camera.projection[3, 2]) > 1e-8
-        inv_tan_half = torch.where(is_persp, torch.abs(camera.projection[1, 1]), 1.0)
         proj_scale = h * inv_tan_half / 2.0
         vis, lod = cull_instances(
             gscene, world, camera.frustum_planes, camera.position, proj_scale, frustum_enabled=config.culling_frustum
@@ -249,7 +334,86 @@ class RendererInstance:
         ctx["gbuffer"] = gbuffer
         ctx = self._run_cbs(RenderStage.VISBUFFER_DECODE, "after", ctx)
         ctx["lights"] = lights
+
+        def cached(name: str, compute: Callable[[], Any], moved_now: bool):
+            """A term recomputed when its key moved or the carry lacks it,
+            else taken from the carry (the JAX graph's `lax.cond`)."""
+            out = compute() if moved_now or name not in prev else prev[name]
+            carry[name] = out
+            return out
+
+        def static_cached(name: str, compute: Callable[[], Any]):
+            """A term of the static-frame memo (`_static_cached` in the JAX graph)."""
+            return cached(name, compute, static_dirty is None or static_dirty)
+
+        # ---- Atmosphere ---------------------------------------------------
+        if atmosphere is not None:
+            t_lut, ms_lut = self.sky_luts(atmosphere, dev)
+            sky_lut = cached("sky_view_lut", lambda: sky.sky_view_lut(atmosphere, t_lut, ms_lut, -sun_dir,
+                                                                      sun_intensity=si), moved["sky"])
+            carry["sky_key"] = keys["sky"]
+
+            def compute_background() -> Tensor:
+                # per-pixel view rays at half resolution (the even pixels of the
+                # full-res fan), sampled, then upsampled: the sky is smooth
+                xs = (torch.arange(0, w, 2, dtype=torch.float32, device=dev) + 0.5) / w * 2.0 - 1.0
+                ys = (torch.arange(0, h, 2, dtype=torch.float32, device=dev) + 0.5) / h * 2.0 - 1.0
+                tan_half = 1.0 / inv_tan_half  # the camera's true fov
+                dirs = (
+                    camera.forward[None, None, :]
+                    + camera.right[None, None, :] * (xs[None, :, None] * tan_half * (w / h))
+                    - camera.up[None, None, :] * (ys[:, None, None] * tan_half)
+                )
+                return resize_linear(sky.sample_sky_view(sky_lut, dirs), (h, w, 3))
+
+            background = cached("sky_background", compute_background, moved["bg"])
+            carry["sky_cam_key"] = keys["bg"]
+            if ambient_color is None:
+                ambient_color = cached("sky_ambient", lambda: sky.sky_sh_ambient(sky_lut) * 0.3, moved["amb"])
+            ctx["sky_view_lut"] = sky_lut
+            ctx["_sky_luts"] = (t_lut, ms_lut)
         ctx = self._run_cbs(RenderStage.ATMOSPHERE, "after", ctx)
+
+        # ---- Shadows ------------------------------------------------------
+        if enable_shadows:
+            light_vps = shadows.clipmap_matrices(sun_dir, camera.position, first_width=first_clipmap_width)
+            # residency: only pages this frame's shaded pixels sample are rendered
+            vis_pages = shadows.mark_visible_pages(_pds(gbuffer["world_pos"], 8), _pds(gbuffer["hit"], 8), light_vps)
+            shadow_maps, carry["shadow_cache"] = shadows.render_shadow_clipmaps_cached(
+                gscene, world, light_vps, prev.get("shadow_cache"), visible_pages=vis_pages,
+            )
+            ctx["shadow_maps"] = shadow_maps
+
+            def compute_shadow_term() -> Tensor:
+                # resolve at quarter resolution, contact shadows at 1/8
+                sh = resize_linear(shadows.resolve_shadows(_pds(gbuffer["world_pos"], 4), _pds(gbuffer["hit"], 4),
+                                                           light_vps, shadow_maps), (h, w))
+                if config.contact_shadows:
+                    cs = shadows.contact_shadows(
+                        _pds(depth, 8), _pds(gbuffer["world_pos"], 8), _pds(gbuffer["hit"], 8), sun_dir,
+                        camera.view_projection, steps=config.contact_shadows_steps,
+                        thickness=config.contact_shadows_thickness, length=max(config.contact_shadows_length, 0.05),
+                    )
+                    sh = sh * resize_linear(cs, (h, w))
+                return sh
+
+            ctx["shadow"] = static_cached("shadow_full", compute_shadow_term)
+
+        # ---- GTAO ---------------------------------------------------------
+        if enable_gtao:
+            def compute_ao() -> Tensor:
+                # half-resolution AO, denoised, upsampled
+                wp_h = _pds(gbuffer["world_pos"], 2)
+                view_pos = math3d.mat3_dir_image(camera.view[:3, :3], wp_h) + camera.view[:3, 3]
+                view_nrm = math3d.mat3_dir_image(camera.view[:3, :3], _pds(gbuffer["normal"], 2))
+                a = gtao_ops.gtao(
+                    view_pos, view_nrm, _pds(gbuffer["hit"], 2), radius=config.vbgtao_radius,
+                    thickness=config.vbgtao_thickness, final_power=config.vbgtao_final_power,
+                    quality_level=config.vbgtao_quality_level,
+                )
+                return resize_linear(gtao_ops.denoise_ao(a, _pds(depth, 2)), (h, w))
+
+            ctx["ao"] = static_cached("ao_full", compute_ao)
 
         # ---- Lighting -----------------------------------------------------
         ctx = self._run_cbs(RenderStage.LIGHTING, "before", ctx)
@@ -259,6 +423,25 @@ class RendererInstance:
             gbuffer, lights, camera.position, ambient_color, background=background,
             ao=ctx.get("ao"), shadow=ctx.get("shadow"), static_lights=static_lights, live_lights=live_lights,
         )
+        if config.ssr_enable:
+            hdr = apply_ssr(hdr, gbuffer, depth, camera.position, camera.view_projection, steps=config.ssr_steps,
+                            max_roughness=config.ssr_max_roughness)
+        # aerial perspective through the froxel LUT: a function of (camera
+        # height, sun, atmosphere) in world-direction space, rebuilt when its
+        # quantised key moves
+        if atmosphere is not None:
+            t_lut2, ms_lut2 = ctx["_sky_luts"]
+            ap_vol = cached("aerial_lut", lambda: sky.aerial_lut(atmosphere, t_lut2, ms_lut2, cam_h_km, -sun_dir,
+                                                                 sun_intensity=si), moved["aerial"])
+            carry["aerial_key"] = keys["aerial"]
+
+            def compute_aerial_apply() -> tuple[Tensor, Tensor]:
+                ap_l8, ap_t8 = sky.apply_aerial_lut(ap_vol, _pds(gbuffer["world_pos"], 8), _pds(gbuffer["hit"], 8),
+                                                    camera.position, meters_per_km=METERS_PER_KM)
+                return resize_linear(ap_l8, (h, w, 3)), resize_linear(ap_t8, (h, w, 3))
+
+            ap_l, ap_t = static_cached("aerial_apply", compute_aerial_apply)
+            hdr = torch.where(gbuffer["hit"][..., None], hdr * ap_t + ap_l, hdr)
         ctx["hdr"] = hdr
         ctx = self._run_cbs(RenderStage.LIGHTING, "after", ctx)
 

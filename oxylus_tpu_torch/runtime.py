@@ -20,7 +20,8 @@ Which implementation a kernel runs is picked inside its wrapper by the tensors'
 device: the CUDA kernel on a card, the plain version on the CPU. The runner
 runs on the card unless `device="cpu"` is given; the scene must live on the
 same device. Per-frame script hooks are carried over; audio, the 2D renderer
-and the unported render features raise.
+and the unported render features raise. `atmosphere` (an `AtmosphereParams`)
+and `enable_shadows` go to every rendered frame, as in the JAX runner.
 """
 
 from __future__ import annotations
@@ -80,8 +81,6 @@ class SceneRunner:
             raise ValueError(f"the scene lives on {scene.device}, the runner was asked for {dev}")
         if render_mode not in ("none", "3d"):
             raise _not_ported(f"render_mode={render_mode!r}")
-        if atmosphere is not None or enable_shadows:
-            raise _not_ported("the atmosphere and shadows")
         has_audio = bool(
             (scene._alive & scene._comp_mask["AudioSourceComponent"]).any()
             or (scene._alive & scene._comp_mask["AudioListenerComponent"]).any()
@@ -101,6 +100,8 @@ class SceneRunner:
         self.contact_tracker = ContactTracker() if track_contacts else None
         self.activation_tracker = ActivationTracker() if track_contacts else None
         self.config: RendererConfig = scene.renderer_config
+        self.atmosphere = atmosphere
+        self.enable_shadows = enable_shadows
         if not scene.running:
             scene.runtime_start()
         self.state = scene.to_device_state()
@@ -138,6 +139,10 @@ class SceneRunner:
                 max_visible_meshlets=min(spec.max_visible_meshlets, cap),
             )
             self.renderer3d = RendererInstance(spec)
+            if atmosphere is not None:
+                # build the transmittance and multiple-scattering LUTs now, once
+                # per atmosphere, as the JAX runner prewarms its LUT cache
+                self.renderer3d.sky_luts(atmosphere, dev)
         self.bindings = bindings or default_bindings(scene.spec.padded_entities(), device=dev)
         flags = self.bindings.materials.flags.cpu().numpy()
         if np.any(flags & 0b1111):
@@ -313,7 +318,8 @@ class SceneRunner:
         camera = camera_from_state(self.state, self._camera_idx, self.width / self.height)
         ctx = self.renderer3d.render(
             self.state, self.gscene, camera, self.bindings.materials, self.bindings.atlas, self.config,
-            prev=self.carry, static_lights=self._static_lights,
+            prev=self.carry, atmosphere=self.atmosphere, enable_shadows=self.enable_shadows,
+            static_lights=self._static_lights,
         )
         self.carry = ctx["carry"]
         return ctx["final"]

@@ -225,3 +225,16 @@ def aabb_vs_frustum(planes: Tensor, bmin: Tensor, bmax: Tensor) -> Tensor:
     d = dot_fma(planes[..., :3], center[..., None, :]) + planes[..., 3]
     r = dot_fma(torch.abs(planes[..., :3]), extent[..., None, :])
     return torch.all(d + r >= 0.0, dim=-1)
+
+
+def mat4_point_image(m: Tensor, p: Tensor) -> Tensor:
+    """Transform an image of 3-D points (..., 3) by a 4×4 matrix → (..., 4) clip
+    coordinates, each row summed left to right as the JAX module writes it."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    return torch.stack([((m[i, 0] * x + m[i, 1] * y) + m[i, 2] * z) + m[i, 3] for i in range(4)], dim=-1)
+
+
+def mat3_dir_image(m: Tensor, d: Tensor) -> Tensor:
+    """Rotate an image of 3-D vectors (..., 3) by a 3×3 matrix."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return torch.stack([(m[i, 0] * x + m[i, 1] * y) + m[i, 2] * z for i in range(3)], dim=-1)

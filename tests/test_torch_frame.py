@@ -248,6 +248,22 @@ def test_runner_refuses_unported_routes():
         SceneRunner(audio, device="cpu")
 
 
+def test_runner_takes_the_full_config5_frame():
+    """The atmosphere, shadows, GTAO and SSR are no longer refused: the runner
+    of `build_frame5_scene` (the JAX package's config 5) is built with all four
+    on, its sky LUTs prewarmed once for its atmosphere."""
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.render.sky import AtmosphereParams
+
+    scene, kw = build_frame5_scene(64, 48, n_objects=4, n_boxes=20, max_bodies=256, device="cpu")
+    assert kw["atmosphere"] == AtmosphereParams() and kw["enable_shadows"]
+    runner = SceneRunner(scene, **kw)
+    assert runner.config.vbgtao_enable and runner.config.ssr_enable
+    assert list(runner.renderer3d._sky_cache) == [AtmosphereParams()]
+    t_lut, ms_lut = runner.renderer3d._sky_cache[AtmosphereParams()]
+    assert t_lut.shape == (64, 256, 3) and ms_lut.shape == (32, 32, 3)
+
+
 def test_fused_frame_runs_physics_substep_when_compact_is_not_eligible():
     """A 3D runner whose scene the compact kernel cannot take (capacity 128)
     steps its physics in the fused frame with `physics_substep`, as the JAX

@@ -45,6 +45,12 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.ops.setup3d",
     "oxylus_tpu_torch.ops.raster3d",
     "oxylus_tpu_torch.ops.hiz",
+    "oxylus_tpu_torch.ops.raster_depth",
+    "oxylus_tpu_torch.utils.imgops",
+    "oxylus_tpu_torch.render.sky",
+    "oxylus_tpu_torch.render.shadows",
+    "oxylus_tpu_torch.render.gtao",
+    "oxylus_tpu_torch.render.ssr",
 ]
 
 PROBE = f"""
