@@ -3,17 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
-G-buffer raster, the HiZ pyramid, the dense rigid-body kernel and the
-depth-only shadow raster) from the sources in this checkout and drives the
-port's paths on the card: the fused simulate-and-render 3D frame of the
-config-5 scene at its full size (1920×1080, 150 meshlet objects, 255 falling
-boxes, capacity 512), without the atmosphere, shadows, GTAO and SSR (phase 3)
-and whole (phase 9), the headless dense runner on the flagship (1022 boxes,
-capacity 1024) and the default runner on `entry()`'s scene (255 boxes,
-capacity 512), with bodies made from a fixed seed. Every kernel-vs-plain
-check runs the kernel and its plain PyTorch version on the same card tensors
-through the kernel's wrapper (`megakernel_substeps_compact`, with its sort and
-permutations; `megakernel_substeps`; `rasterize_depth`).
+G-buffer raster, the HiZ pyramid, the dense rigid-body kernel, the
+depth-only shadow raster and the sprite blend) from the sources in this
+checkout and drives the port's paths on the card: the fused
+simulate-and-render 3D frame of the config-5 scene at its full size
+(1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), without
+the atmosphere, shadows, GTAO and SSR (phase 3) and whole (phase 9), the
+headless dense runner on the flagship (1022 boxes, capacity 1024), the
+default runner on `entry()`'s scene (255 boxes, capacity 512), the 2D runner
+on config 2 (phase 10) and the 3D frame with particles on config 3 (phase
+11), with bodies made from a fixed seed. Every kernel-vs-plain check runs the
+kernel and its plain PyTorch version on the same card tensors through the
+kernel's wrapper (`megakernel_substeps_compact`, with its sort and
+permutations; `megakernel_substeps`; `rasterize_depth`; `run_blend`).
 
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
@@ -69,7 +71,27 @@ permutations; `megakernel_substeps`; `rasterize_depth`).
    full-tier calls timed with CUDA events against their plain versions and
    their bound; and one frame rendered with the kernels and with the plain
    versions from a shared state and carry (the carry one frame old, so shadow
-   pages re-render), which must be identical.
+   pages re-render), which must be identical;
+10. config 2, `SceneRunner(**build_frame2d_scene(1920, 1080)[1])` (512
+   sprites on 4 layers, 2 emitters, 4096 records a frame): 2 warm-up frames,
+   then 60 frames with every launch count set to 0 just before; one blend
+   launch per frame, the image finite in [0, 1] up to float32 rounding, the
+   vids in [-1, 2048);
+   then the blend kernel vs plain on one frame's captured inputs (colour bits
+   and vid exactly equal), both timed, with the bound from those inputs, and
+   on seeded, varied inputs at the same packed shapes (config 2's texel
+   planes are all one white): random texel planes and tints, flipped,
+   untextured and alpha-masked entries, full and empty tiles;
+11. config 3, `SceneRunner(**build_frame3d_scene(1920, 1080)[1])` (200
+   meshlet objects, 8 point lights, 3 emitters, atmosphere, shadows, GTAO,
+   the quarter-resolution particle layer): every launch count set to 0, then
+   2 warm-up frames and 60 timed frames (the static scene's shadow pages
+   render in the first frame only); the depth-tested blend launched once per
+   frame, the tile raster, HiZ and depth raster launched,
+   the image finite in [0, 1]; the blend vs plain on a captured particle
+   layer and on seeded inputs at its packed shapes with tied depths (exact,
+   the particles being one constant colour); one frame rendered with the kernels and with the plain
+   versions from a shared state and carry (identical).
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -138,6 +160,20 @@ DENSE_OPS_POINT, DENSE_OPS_POINT_SWEEP = 44, 93
 # the fold into the tile (compare, select)
 DEPTH_OPS_TRI_PIXEL, DEPTH_OPS_PAIR_PIXEL = 52, 2
 FULL_TIER, SMALL_TIER = 2048, 768  # the shadow levels' capacities (`render_shadow_clipmaps_cached`)
+# Sprite blend: float operations per live (tile, entry) pair and tile pixel:
+# the local coordinates (2 sub, 2 × (2 mul, sub, mul)), the inside test (4
+# compares), u and v (5), the two clips and scales (6), four tent weights (4
+# × (sub, abs, sub, max)), four tap weights (4 mul), the four taps over four
+# channels (16 mul, 12 add), the alpha (mul, cutoff compare), the blend
+# (1 - a, 3 × (2 mul, add), 2 for alpha) and the id compare; the depth
+# variant adds one compare
+BLEND_OPS_ENTRY_PIXEL = 88
+BLEND_OUT_BYTES_PIXEL = 20  # RGBA f32 + the i32 id
+# The blend's premultiplied colour lies in [0, 1] up to float32 rounding: the
+# four bilinear tap weights of the TPU kernel's formula sum to 1 only to a few
+# ulps, so a white texel blends to 1.0000002 (the JAX device branch gives the
+# same on config 2)
+BLEND_RANGE_ROUNDING = 1e-6
 ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
 EVENT_FRAMES = 4
 
@@ -191,6 +227,7 @@ PLAIN_ROUTES = {
     "oxylus_tpu_torch.ops.hiz": ("build_hiz", "hiz_reference"),
     "oxylus_tpu_torch.physics.megakernel": ("run_dense", "dense_substeps_reference"),
     "oxylus_tpu_torch.ops.raster_depth": ("rasterize_depth", "rasterize_depth_reference"),
+    "oxylus_tpu_torch.ops.blend2d": ("run_blend", "blend_tiles_reference"),
 }
 
 
@@ -239,9 +276,11 @@ def main() -> int:
     from oxylus_tpu_torch import _build
     from oxylus_tpu_torch.assets.native import bake_path
     from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.frame2d import build_frame2d_scene
+    from oxylus_tpu_torch.frame3d import build_frame3d_scene
     from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import blend2d, raster2d, raster3d, raster_depth, setup3d
     from oxylus_tpu_torch.ops import hiz as hiz_ops
-    from oxylus_tpu_torch.ops import raster3d, raster_depth, setup3d
     from oxylus_tpu_torch.flagship import entry
     from oxylus_tpu_torch.physics import megakernel as mk
     from oxylus_tpu_torch.physics import megakernel_compact as mc
@@ -309,7 +348,8 @@ def main() -> int:
           f"{runner.renderer3d.spec}", flush=True)
     runner.run(MAIN_WARMUP)
     kernel_mods = (mc, raster3d, hiz_ops)
-    for mod in kernel_mods + (mk, raster_depth):
+    every_mod = kernel_mods + (mk, raster_depth, blend2d)
+    for mod in every_mod:
         mod.LAUNCHES = 0
     # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
     counts, frames = [], []
@@ -540,7 +580,7 @@ def main() -> int:
     flag = build_flagship(FLAGSHIP_BOXES, device=dev)
     runner = SceneRunner(flag, render_mode="none", use_megakernel=True)
     runner.run(MAIN_WARMUP)
-    all_mods = kernel_mods + (mk, raster_depth)
+    all_mods = every_mod
     for mod in all_mods:
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -648,7 +688,7 @@ def main() -> int:
         runner.step()  # the first frame: no shadow cache, all six levels at the full tier
     runner.run(MAIN_WARMUP - 1)
     full_mods = (mc, raster3d, hiz_ops, raster_depth)
-    for mod in full_mods + (mk,):
+    for mod in every_mod:
         mod.LAUNCHES = 0
     counts, frames, depth_per_frame, tiers = [], [], [], collections.Counter()
     frame_calls: list = []
@@ -753,6 +793,264 @@ def main() -> int:
     check(rendered > 0, "the shared-carry frame rendered no shadow level")
     check(torch.equal(img_k, img_p), "full frame: kernel and plain frames differ")
 
+    def binning_drops(prefix, w, h, k):
+        """(dropped, binned) (tile, record) pairs of one frame's 2D binning:
+        the overlaps of the sorted visible prefix per 32² tile, and those past
+        the tile capacity `k`."""
+        total = raster2d.tile_overlaps(prefix, w, h).sum(1)
+        return int((total - k).clamp(min=0).sum()), int(total.sum())
+
+    def blend_texels_needed(tl, cnt, fields, tex, w, h, sd) -> int:
+        """Distinct texels the blend's function must read: per live (tile,
+        entry) pair, the taps of nonzero weight at the pixels of the image
+        inside the entry's quad (and, with scene depth, nearer than the
+        scene), counted once per texel plane."""
+        tx = (w + blend2d.TILE - 1) // blend2d.TILE
+        lin = torch.arange(blend2d.PIX, device=dev)
+        lx, ly = (lin % blend2d.TILE).float(), (lin // blend2d.TILE).float()
+        t_idx, k_idx = torch.nonzero(torch.arange(tl.shape[1], device=dev)[None, :] < cnt[:, None], as_tuple=True)
+        need = torch.zeros(tex.shape[0] * blend2d.TEX * blend2d.TEX, dtype=torch.bool, device=dev)
+        for c0 in range(0, t_idx.numel(), 2048):
+            t, k = t_idx[c0 : c0 + 2048], k_idx[c0 : c0 + 2048]
+            f = fields[t, k]
+            px = ((t % tx) * blend2d.TILE).float()[:, None] + lx + 0.5
+            py = (torch.div(t, tx, rounding_mode="floor") * blend2d.TILE).float()[:, None] + ly + 0.5
+            p00x, p00y, e0x, e0y, e1x, e1y, idet = (f[:, i : i + 1] for i in range(7))
+            rx, ry = px - p00x, py - p00y
+            lu = (rx * e1y - ry * e1x) * idet
+            lv = (ry * e0x - rx * e0y) * idet
+            use = (lu >= 0) & (lu <= 1) & (lv >= 0) & (lv <= 1) & (px < w) & (py < h)
+            if sd is not None:
+                use &= f[:, 10:11] > sd[py.long().clamp(max=h - 1), px.long().clamp(max=w - 1)]
+            fu = torch.clamp(lu + f[:, 9:10] * (1 - 2 * lu), 0, 1) * (blend2d.TEX - 1)
+            fv = torch.clamp(1 - lv, 0, 1) * (blend2d.TEX - 1)
+            u0, v0 = fu.long().clamp(0, blend2d.TEX - 2), fv.long().clamp(0, blend2d.TEX - 2)
+            plane = torch.clamp(tl[t, k].long(), 0, tex.shape[0] - 1)[:, None] * blend2d.TEX * blend2d.TEX
+            for dv in (0, 1):
+                for du in (0, 1):
+                    weight = (1 - (fu - (u0 + du)).abs()).clamp(min=0) * (1 - (fv - (v0 + dv)).abs()).clamp(min=0)
+                    need[(plane + (v0 + dv) * blend2d.TEX + u0 + du)[use & (weight > 0)]] = True
+        return int(need.sum())
+
+    def blend_vs_plain(label, args, timed=True):
+        """The blend kernel and its plain version on packed inputs: colour bits
+        and vid exactly equal. With `timed`, both timed and the bound from the
+        inputs (the live entries' fields and list slots, the texels they need,
+        the scene depth and the outputs; the live pairs' operations)."""
+        tl, cnt, fields, tex, w, h, sd = args
+        got = blend2d.run_blend(*args)
+        want = blend2d.blend_tiles_reference(*args)
+        torch.cuda.synchronize()
+        c_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+        v_diff = int((got[1] != want[1]).sum())
+        err = (got[0] - want[0]).abs().max().item()
+        pairs = int(cnt.sum())
+        msg = (f"[{label}] {w}x{h}, {tl.shape[0]} tiles, {pairs} live (tile, entry) pairs, worst tile "
+               f"{int(cnt.max())} entries, {int((cnt == 0).sum())} empty tiles, depth test {sd is not None}: "
+               f"colour bit mismatches {c_bits}, vid mismatches {v_diff}, max abs err {err}, alpha mean "
+               f"{got[0][..., 3].mean().item():.5f}, pixels with an id {int((got[1] >= 0).sum())}")
+        if not timed:
+            print(msg, flush=True)
+            check(c_bits == 0 and v_diff == 0, f"{label}: blend kernel != plain")
+            return got, err
+        texels = blend_texels_needed(*args)
+        n_bytes = (pairs * (fields.shape[2] + 1) + cnt.numel() + texels * 4) * 4 \
+            + w * h * (BLEND_OUT_BYTES_PIXEL + (4 if sd is not None else 0))
+        bd = bound(n_bytes, pairs * blend2d.PIX * (BLEND_OPS_ENTRY_PIXEL + int(sd is not None)))
+        ms = cuda_ms(lambda: blend2d.run_blend(*args), 50)
+        plain = cuda_ms(lambda: blend2d.blend_tiles_reference(*args), 3)
+        print(f"{msg}; {texels} texels needed; kernel {ms:.4f} ms, plain {plain:.2f} ms, bound {bd[0]:.5f} ms "
+              f"({bd[1]}) ({card})", flush=True)
+        check(c_bits == 0 and v_diff == 0, f"{label}: blend kernel != plain")
+        return got, err, ms, plain, bd
+
+    def seeded_blend_inputs(seed, w, h, k, n_sprites, with_depth):
+        """Packed blend inputs at a main path's shapes (w×h, K = k), made from
+        a seed: rotated sprites of assorted sizes, random texel planes from
+        transparent to opaque, random tints, every 4th untextured, every 3rd
+        alpha-masked at 0.45, every 2nd flipped; every 8th untextured of
+        alpha 0.5, axis-aligned, 15 px, at a half-pixel corner, so that texel
+        coordinates fall on integers and alphas on the id's 0.5 threshold; a
+        cluster crowds the first tile past K and the right part of the image
+        stays empty; with `with_depth` record and scene depths in eighths, so
+        that some tie."""
+        g = torch.Generator().manual_seed(seed)
+        rnd = lambda *shape: torch.rand(shape, generator=g)
+        n_crowd = k + 16
+        cx = torch.cat([4 + 24 * rnd(n_crowd), 0.8 * w * rnd(n_sprites - n_crowd)])
+        cy = torch.cat([4 + 24 * rnd(n_crowd), h * rnd(n_sprites - n_crowd)])
+        sx, sy = 4 + w / 16 * rnd(n_sprites), 4 + w / 16 * rnd(n_sprites)
+        th = (2 * rnd(n_sprites) - 1) * torch.pi
+        i = torch.arange(n_sprites)
+        axis = i % 8 == 7
+        th[axis], sx[axis], sy[axis] = 0.0, 15.0, 15.0
+        cx[axis], cy[axis] = cx[axis].round(), cy[axis].round()
+        c, s = torch.cos(th), torch.sin(th)
+        e0x, e0y, e1x, e1y = c * sx, s * sx, -s * sy, c * sy
+        p00x, p00y = cx - 0.5 * (e0x + e1x), cy - 0.5 * (e0y + e1y)
+        rec = torch.zeros((n_sprites, 16))
+        rec[:, 0:7] = torch.stack([p00x, p00y, e0x, e0y, e1x, e1y, 1.0 / (e0x * e1y - e0y * e1x)], 1)
+        rec[:, 7:11] = 0.3 + 0.7 * rnd(n_sprites, 4)
+        rec[axis, 10] = 0.5
+        rec[:, 11] = 0.45
+        rec[:, 12] = (i % 3 == 0).float()
+        rec[:, 13] = (i % 4 != 3).float()
+        rec[:, 14] = i.float()
+        rec[:, 15] = (i % 2 == 1).float()
+        xs = torch.stack([p00x, p00x + e0x, p00x + e1x, p00x + e0x + e1x])
+        ys = torch.stack([p00y, p00y + e0y, p00y + e1y, p00y + e0y + e1y])
+        tex = rnd(n_sprites, blend2d.TEX, blend2d.TEX, 4)
+        tex[..., 3] = torch.clamp(1.6 * rnd(n_sprites, blend2d.TEX, blend2d.TEX) - 0.3, 0, 1)
+        tx, ty = (w + blend2d.TILE - 1) // blend2d.TILE, (h + blend2d.TILE - 1) // blend2d.TILE
+        t = torch.arange(tx * ty)
+        x0, y0 = ((t % tx) * blend2d.TILE).float()[:, None], ((t // tx) * blend2d.TILE).float()[:, None]
+        hit = (xs.amax(0) >= x0) & (xs.amin(0) < x0 + blend2d.TILE) & (ys.amax(0) >= y0) \
+            & (ys.amin(0) < y0 + blend2d.TILE)
+        order = torch.where(hit, i, n_sprites).sort(1).values[:, :k]
+        tl = torch.where(order < n_sprites, order, -1).to(torch.int32)
+        rec_depth = torch.floor(8 * rnd(n_sprites)) / 8 if with_depth else None
+        sd = (torch.floor(8 * rnd(h, w)) / 8).to(dev) if with_depth else None
+        packed = blend2d.pack_blend_inputs(rec.to(dev), tex.to(dev), tl.to(dev),
+                                           None if rec_depth is None else rec_depth.to(dev))
+        tl_d, cnt, fields, _ = packed
+        live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
+        flip, cut = fields[..., 9][live], fields[..., 7][live]
+        check(int(cnt.max()) == k and bool((cnt == 0).any()) and bool((flip == 1).any())
+              and bool((flip == 0).any()) and bool((cut >= 0).any()) and bool((cut < 0).any()),
+              f"seeded blend inputs {w}x{h}: no full or empty tile, or no flipped or alpha-masked live entry")
+        return (*packed, w, h, sd)
+
+    # ---- 10. config 2: the 2D runner ------------------------------------------------
+    t0 = time.perf_counter()
+    scene, runner_kw = build_frame2d_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    n_ent = scene.spec.padded_entities()
+    print(f"[10] config-2 scene and 2D runner built in {time.perf_counter() - t0:.2f} s: "
+          f"{int(scene._comp_mask['SpriteComponent'].sum())} sprites, {n_ent} entity slots, "
+          f"{scene.spec.max_particles} particle slots", flush=True)
+    runner.run(MAIN_WARMUP)
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    per_frame, blend_args, on_screen, prefixes = [], [], [], []
+    t0 = time.perf_counter()
+    with capture(blend2d, "run_blend", blend_args), \
+            capture(raster2d, "sprite_sort_order", on_screen, keep=lambda args: args[4].sum()), \
+            capture(raster2d, "resample_texture_tiles", prefixes, keep=lambda args: args[0]):
+        for _ in range(MAIN_FRAMES):
+            blend_args.clear()
+            on_screen.clear()
+            prefixes.clear()
+            b0 = blend2d.LAUNCHES
+            image = runner.step()
+            per_frame.append(blend2d.LAUNCHES - b0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    launches[blend2d.__name__] = blend2d.LAUNCHES
+    n_particles = int(runner.state.particles.alive.sum())
+    visible = min(int(on_screen[0]), blend2d.MAX_VISIBLE)
+    dropped, binned = binning_drops(prefixes[0], WIDTH, HEIGHT, blend_args[0][0].shape[1])
+    print(f"[10] 2D image range [{image.min().item()}, {image.max().item()}]", flush=True)
+    print(f"[10] 2D runner (config 2): {MAIN_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall:.3f} s = "
+          f"{MAIN_FRAMES / wall:.2f} frames/s ({card}); kernel launches {path_launches}; blend launches per frame "
+          f"{sorted(set(per_frame))}; last frame: {n_particles} live particles, {int(on_screen[0])} records on "
+          f"screen, {visible} visible (MAX_VISIBLE {blend2d.MAX_VISIBLE}), worst tile "
+          f"{int(blend_args[0][1].max())} entries, binning dropped {dropped} of {binned} (tile, record) pairs at "
+          f"capacity {blend_args[0][0].shape[1]}; image mean "
+          f"{image.mean().item():.5f}", flush=True)
+    check(per_frame == [1] * MAIN_FRAMES, f"blend launches per frame {per_frame}")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 4), f"2D image shape {tuple(image.shape)}")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0
+          and image.max().item() <= 1.0 + BLEND_RANGE_ROUNDING,
+          f"2D image not finite or outside [0, 1] (+{BLEND_RANGE_ROUNDING} rounding): "
+          f"[{image.min().item()}, {image.max().item()}]")
+    check(n_particles > 0, "no live particle in the 2D frame")
+    got, err10, blend_ms, blend_plain_ms, blend_bound = blend_vs_plain("10: blend, last frame", blend_args[0])
+    vid = got[1]
+    check(int(vid.min()) >= -1 and int(vid.max()) < n_ent and bool((vid >= 0).any()),
+          f"2D vids in [{int(vid.min())}, {int(vid.max())}], not in [-1, {n_ent})")
+    # config 2's planes are all one white, so also seeded, varied inputs at its packed shapes
+    seeded = seeded_blend_inputs(10, WIDTH, HEIGHT, blend_args[0][0].shape[1], blend2d.MAX_VISIBLE, False)
+    got, err = blend_vs_plain("10: blend, seeded sprites", seeded, timed=False)
+    err10 = max(err10, err)
+    check(bool((got[1] >= 0).any()), "seeded 2D blend: no pixel took an id")
+
+    # ---- 11. config 3: the 3D frame with the particle composite ---------------------
+    t0 = time.perf_counter()
+    scene, runner_kw = build_frame3d_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    print(f"[11] config-3 runner built in {time.perf_counter() - t0:.2f} s (sky LUTs included): particles "
+          f"{runner._has_particles}, atmosphere {runner.atmosphere is not None}, shadows {runner.enable_shadows}, "
+          f"GTAO {runner.config.vbgtao_enable}, SSR {runner.config.ssr_enable}", flush=True)
+    check(runner._has_particles, "the config-3 runner leaves the particle composite out")
+    # The scene is static, so its shadow pages render in the first frame and
+    # stay in the page cache: the counts are read over the warm-up frames and
+    # the timed ones, and the frame rate over the timed ones.
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    per_frame, depth_per_frame, blend_args, prefixes = [], [], [], []
+    with capture(blend2d, "run_blend", blend_args), \
+            capture(raster2d, "resample_texture_tiles", prefixes, keep=lambda args: args[0]):
+        for i in range(MAIN_WARMUP + MAIN_FRAMES):
+            if i == MAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            blend_args.clear()
+            prefixes.clear()
+            b0, d0 = blend2d.LAUNCHES, raster_depth.LAUNCHES
+            image = runner.step()
+            per_frame.append(blend2d.LAUNCHES - b0)
+            depth_per_frame.append(raster_depth.LAUNCHES - d0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    launches[blend2d.__name__] += blend2d.LAUNCHES
+    n_particles = int(runner.state.particles.alive.sum())
+    tl, _, _, _, lw, lh, _ = blend_args[0]
+    dropped, binned = binning_drops(prefixes[0], lw, lh, tl.shape[1])
+    print(f"[11] 3D runner (config 3): {MAIN_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall:.3f} s = "
+          f"{MAIN_FRAMES / wall:.2f} frames/s ({card}); kernel launches over the {MAIN_WARMUP} warm-up and "
+          f"{MAIN_FRAMES} timed frames {path_launches}; depth raster launches per frame {depth_per_frame}; blend "
+          f"launches per frame {sorted(set(per_frame))}; last frame: {n_particles} live particles, particle layer "
+          f"{lw}x{lh}, worst tile {int(blend_args[0][1].max())} entries, binning dropped {dropped} of {binned} "
+          f"(tile, record) pairs at capacity {tl.shape[1]}; expand_overflow {int(runner.carry['expand_overflow'])}; "
+          f"image mean {image.mean().item():.5f}", flush=True)
+    check(per_frame == [1] * (MAIN_WARMUP + MAIN_FRAMES), f"blend launches per frame {per_frame}")
+    check(blend_args[0][6] is not None, "the particle layer's blend is not the depth-tested variant")
+    for mod in (raster3d, hiz_ops, raster_depth):
+        check(path_launches[mod.__name__] > 0, f"the config-3 frame never launched the {mod.__name__} kernel")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(image.shape)}")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0 and image.max().item() <= 1.0,
+          "config-3 image not finite or outside [0, 1]")
+    check(n_particles > 0, "no live particle in the config-3 frame")
+    err11 = blend_vs_plain("11: depth-tested blend, last frame", blend_args[0])[1]
+    # config 3's particles are one constant colour of alpha 0.35, so also seeded, varied inputs at its packed shapes
+    seeded = seeded_blend_inputs(11, lw, lh, tl.shape[1], 256, True)
+    got, err = blend_vs_plain("11: depth-tested blend, seeded sprites", seeded, timed=False)
+    err11 = max(err11, err)
+    check(bool((got[1] >= 0).any()), "seeded depth-tested blend: no pixel took an id")
+    prev = runner.carry
+    runner.step()
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    render = lambda: runner.renderer3d.render(
+        runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+        prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows, particles=True,
+        static_lights=runner._static_lights,
+    )
+    b0 = blend2d.LAUNCHES
+    ctx_k = render()
+    rendered = blend2d.LAUNCHES - b0
+    with plain_on_card(raster3d, hiz_ops, raster_depth, blend2d):
+        ctx_p = render()
+    img_k, img_p = ctx_k["final"], ctx_p["final"]
+    layer_eq = torch.equal(ctx_k["particle_layer"], ctx_p["particle_layer"])
+    print(f"[11] one config-3 frame rendered with the kernels ({rendered} blend launch) and with the plain versions "
+          f"from a shared state and carry: particle layers identical {layer_eq} (layer alpha mean "
+          f"{ctx_k['particle_layer'][..., 3].mean().item():.5f}), images PSNR {psnr(img_k, img_p)} dB, identical "
+          f"{bool(torch.equal(img_k, img_p))}", flush=True)
+    check(rendered == 1 and layer_eq, "config 3: kernel and plain particle layers differ")
+    check(torch.equal(img_k, img_p), "config 3: kernel and plain frames differ")
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -771,6 +1069,8 @@ def main() -> int:
             "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
         row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",
             raster_depth, depth_err, depth_ms, depth_plain_ms, depth_bound),
+        row("blend2d", "oxylus_tpu_torch/ops/csrc/blend2d.cu", "oxylus_tpu/ops/raster2d_pallas.py:41", blend2d,
+            max(err10, err11), blend_ms, blend_plain_ms, blend_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

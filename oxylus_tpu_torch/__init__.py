@@ -7,10 +7,13 @@ as copies (`scene/components.py`, `core/uuid.py`), because every import of
 `oxylus_tpu` pulls in JAX.
 
 Ported so far: the fused simulate-and-render 3D frame (`runtime.py`,
-`scene/frame.py`, `render/`, `ops/`) with the compact rigid-body, tile raster
-and HiZ kernels, and the runner's separate-stage physics: the dense rigid-body
-kernel (`physics/megakernel.py`), the plain substep (`physics/step.py`) and
-contact events (`physics/events.py`). CUDA sources live in `*/csrc/`.
+`scene/frame.py`, `render/`, `ops/`) with the compact rigid-body, tile raster,
+HiZ and depth raster kernels and the particle composite; the 2D frame
+(`render/renderer2d.py`, `ops/raster2d.py`) with the sprite blend kernel
+(`ops/blend2d.py`); and the runner's separate-stage physics: the dense
+rigid-body kernel (`physics/megakernel.py`), the plain substep
+(`physics/step.py`) and contact events (`physics/events.py`). CUDA sources
+live in `*/csrc/`.
 """
 
 __version__ = "0.1.0"

@@ -107,5 +107,7 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.hiz_build.restype = ci
         lib.raster_depth.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.raster_depth.restype = ci
+        lib.blend2d.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.blend2d.restype = ci
         _LIB = lib
     return _LIB

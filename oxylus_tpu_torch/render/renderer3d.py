@@ -9,8 +9,10 @@ against the previous frame's pyramid, pyramid rebuild, late pass for what was
 revealed, merge, second rebuild), G-buffer unpack, the atmosphere (sky LUTs
 cached per `AtmosphereParams`, sky-view LUT, background and SH-2 ambient),
 page-cached clipmap shadows with their resolve and contact shadows, GTAO,
-PBR lighting, SSR, aerial perspective, bloom, tonemap and FXAA. Everything
-runs eagerly on the tensors' device.
+PBR lighting, SSR, aerial perspective, the Forward2D particle composite
+(a quarter-resolution billboard layer through the sprite blend kernel,
+depth-tested against the scene, upsampled and blended over the lit frame),
+bloom, tonemap and FXAA. Everything runs eagerly on the tensors' device.
 
 The JAX graph's device-side branches (`lax.cond` / `lax.switch`) are host
 decisions here, taken the same way. Host reads per frame: one at the top
@@ -25,7 +27,7 @@ camera's position, forward and up) equals the carried one. The key leaves out
 the camera's intrinsics and collides on swapped transforms, as in the JAX
 package (`tests/test_torch_render3d.py` names both).
 
-Not ported yet, and refused with NotImplementedError: particles, texturing,
+Not ported yet, and refused with NotImplementedError: texturing,
 alpha-masked materials, debug views, the group raster path and the non-kernel
 raster path.
 """
@@ -51,6 +53,7 @@ from . import sky
 from .camera import CameraMatrices
 from .pbr import apply_pbr, lights_from_state
 from .postfx import adapt_exposure, apply_bloom, apply_fxaa, apply_tonemap, luminance_histogram
+from .renderer2d import render_particles_3d
 from .ssr import apply_ssr
 
 Tensor = torch.Tensor
@@ -169,7 +172,7 @@ class RendererInstance:
         if enable_gtao is None:
             enable_gtao = config.vbgtao_enable
         for on, what in (
-            (particles, "the particle composite"), (textured, "texturing"),
+            (textured, "texturing"),
             (alpha_masked, "alpha-masked materials"), (bool(config.debug_view), "debug views"),
             (spec.raster_path != "tile", f"raster_path={spec.raster_path!r}"),
             (not spec.use_pallas, "the decode raster path (use_pallas=False)"),
@@ -444,6 +447,21 @@ class RendererInstance:
             hdr = torch.where(gbuffer["hit"][..., None], hdr * ap_t + ap_l, hdr)
         ctx["hdr"] = hdr
         ctx = self._run_cbs(RenderStage.LIGHTING, "after", ctx)
+
+        # ---- Forward2D: particle billboards over the lit frame -------------
+        # (the reference's 2D forward alpha blend runs after PBR and before
+        # post, `RendererInstance.cpp:945-1088`; particles ride the sprite
+        # queue, `:1336-1395`). The layer renders at quarter resolution, 1/16
+        # of the tiles, and composites through one bilinear upsample.
+        if particles:
+            ctx = self._run_cbs(RenderStage.FORWARD_2D, "before", ctx)
+            h4, w4 = h // 4, w // 4
+            p_quarter = render_particles_3d(state, camera, _pds(depth, 4)[:h4, :w4], atlas, materials,
+                                            width=w4, height=h4)
+            p_layer = resize_linear(p_quarter, (h, w, 4))
+            ctx["hdr"] = ctx["hdr"] * (1.0 - p_layer[..., 3:4]) + p_layer[..., :3]
+            ctx["particle_layer"] = p_layer
+            ctx = self._run_cbs(RenderStage.FORWARD_2D, "after", ctx)
 
         # ---- Post-processing ---------------------------------------------
         ctx = self._run_cbs(RenderStage.POST_PROCESSING, "before", ctx)

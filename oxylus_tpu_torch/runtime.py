@@ -6,22 +6,28 @@ Routes as the JAX runner does:
 - `render_mode="3d"` with meshes and a camera, when `step(render=True)`: the
   fused frame (`_step_render3d_fused`): `frame_step` (physics substeps through
   the compact kernel when `use_megakernel` is set and the scene is eligible,
-  `physics_substep` otherwise), camera, then `RendererInstance.render`. `step`
+  `physics_substep` otherwise), camera, then `RendererInstance.render`, with
+  the Forward2D particle composite when the scene has an emitter. `step`
   returns the image.
-- Otherwise the separate-stage path. With `use_megakernel`: a host-side 60 Hz
-  accumulator, one dense-kernel call (`physics/megakernel.py`) with that
-  frame's substep count, then body and character sync, interpolation,
-  particles, sprites and transforms (no character controller, as in the JAX
-  branch). Without it: `frame_step` with `physics_substep`.
+- Otherwise the separate-stage path, and with `render_mode="2d"` and a camera
+  the sprites and particles through `render_2d_with_particles` after it
+  (`step` returns the premultiplied (H, W, 4) colour). With `use_megakernel`:
+  a host-side 60 Hz accumulator, one dense-kernel call
+  (`physics/megakernel.py`) with that frame's substep count, then body and
+  character sync, interpolation, particles, sprites and transforms (no
+  character controller, as in the JAX branch). Without it: `frame_step` with
+  `physics_substep`.
 - With `track_contacts`, contact and activation callbacks every
   `contact_events_every` frames, from one batched host read.
 
 Which implementation a kernel runs is picked inside its wrapper by the tensors'
 device: the CUDA kernel on a card, the plain version on the CPU. The runner
 runs on the card unless `device="cpu"` is given; the scene must live on the
-same device. Per-frame script hooks are carried over; audio, the 2D renderer
-and the unported render features raise. `atmosphere` (an `AtmosphereParams`)
-and `enable_shadows` go to every rendered frame, as in the JAX runner.
+same device. Per-frame script hooks are carried over; audio and the unported
+render features raise (textured and alpha-masked materials in the 3D frame:
+the 2D path samples its textures and applies the cutoff itself).
+`atmosphere` (an `AtmosphereParams`) and `enable_shadows` go to every
+rendered frame, as in the JAX runner.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from .physics.events import ActivationTracker, ContactTracker, query_contacts
 from .physics.megakernel import megakernel_substeps
 from .physics.state import PhysicsParams
 from .render.camera import CameraMatrices, camera_from_state
-from .render.renderer2d import SpriteBatchBindings, default_bindings
+from .render.renderer2d import SpriteBatchBindings, default_bindings, render_2d_with_particles
 from .render.renderer3d import RenderSpec, RendererInstance
 from .render.scene3d import GPUScene, upload_meshes, worst_case_meshlet_instances
 from .scene import frame as _frame
@@ -63,7 +69,7 @@ class SceneRunner:
         width: int = 1920,
         height: int = 1080,
         physics_params: PhysicsParams | None = None,
-        render_mode: str = "none",  # "none" | "3d"
+        render_mode: str = "none",  # "none" | "2d" | "3d"
         use_megakernel: bool = False,
         track_contacts: bool = False,
         contact_events_every: int = 1,
@@ -79,8 +85,8 @@ class SceneRunner:
         dev = resolve_device(device)
         if scene.device != dev:
             raise ValueError(f"the scene lives on {scene.device}, the runner was asked for {dev}")
-        if render_mode not in ("none", "3d"):
-            raise _not_ported(f"render_mode={render_mode!r}")
+        if render_mode not in ("none", "2d", "3d"):
+            raise ValueError(f"render_mode={render_mode!r}: 'none', '2d' or '3d'")
         has_audio = bool(
             (scene._alive & scene._comp_mask["AudioSourceComponent"]).any()
             or (scene._alive & scene._comp_mask["AudioListenerComponent"]).any()
@@ -145,12 +151,15 @@ class SceneRunner:
                 self.renderer3d.sky_luts(atmosphere, dev)
         self.bindings = bindings or default_bindings(scene.spec.padded_entities(), device=dev)
         flags = self.bindings.materials.flags.cpu().numpy()
-        if np.any(flags & 0b1111):
-            raise _not_ported("texturing")
-        if np.any(flags & FLAG_ALPHA_MASK):
-            raise _not_ported("alpha-masked materials")
-        if scene.spec.max_particles > 0 and bool(scene._comp_mask["ParticleSystemComponent"].any()) and render_mode == "3d":
-            raise _not_ported("the 3D particle composite")
+        if render_mode == "3d" and np.any(flags & 0b1111):
+            raise _not_ported("texturing in the 3D frame")
+        if render_mode == "3d" and np.any(flags & FLAG_ALPHA_MASK):
+            raise _not_ported("alpha-masked materials in the 3D frame")
+        # static particle gate: scenes without emitters leave the Forward2D
+        # particle composite out of the 3D frame
+        self._has_particles = bool(
+            scene.spec.max_particles > 0 and scene._comp_mask["ParticleSystemComponent"].any()
+        )
         # lights covered by the unrolled PBR blocks: the scene's own lights
         self._static_lights = max(1, int(np.sum(scene._alive & scene._comp_mask["LightComponent"])))
 
@@ -223,7 +232,8 @@ class SceneRunner:
     # ------------------------------------------------------------------ stepping
     def step(self, dt: float = 1.0 / 60.0, render: bool = True):
         """One frame: simulate (+render when enabled). Returns the final image
-        (H, W, 3) in [0, 1], or None."""
+        ((H, W, 3) in [0, 1] in 3D, the premultiplied (H, W, 4) colour in 2D),
+        or None."""
         self._script_frame_begin(dt)
         if self.scene._pending_body_ops and self.ps is not None:
             self.ps = self.scene.apply_pending_body_ops(self.ps, self.scene.spec.physics_interval)
@@ -238,6 +248,12 @@ class SceneRunner:
             )
         self._post_step_events()
         self.frame_index += 1
+        if render and self.render_mode == "2d":
+            camera = self.active_camera()
+            if camera is not None:
+                image, _vis = render_2d_with_particles(
+                    self.state, camera, self.bindings, width=self.width, height=self.height
+                )
         self._script_frame_end(image)
         self.last_frame = image
         return image
@@ -319,7 +335,7 @@ class SceneRunner:
         ctx = self.renderer3d.render(
             self.state, self.gscene, camera, self.bindings.materials, self.bindings.atlas, self.config,
             prev=self.carry, atmosphere=self.atmosphere, enable_shadows=self.enable_shadows,
-            static_lights=self._static_lights,
+            particles=self._has_particles, static_lights=self._static_lights,
         )
         self.carry = ctx["carry"]
         return ctx["final"]

@@ -229,17 +229,25 @@ def test_runner_routes_frame_state_matches_jax(runner_pair):
 
 
 def test_runner_refuses_unported_routes():
-    """What the port does not run yet raises: the 2D renderer, audio, the 3D
-    particle composite; a runner on another device than its scene is refused."""
+    """What the port does not run yet raises: audio, textured and alpha-masked
+    materials in the 3D frame; a runner on another device than its scene is
+    refused. The 2D renderer and the 3D particle composite are taken now."""
     s = _pile_scene(TScene, tstate.SceneSpec)
-    with pytest.raises(NotImplementedError):
-        SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")
+    assert SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")._has_particles
     with pytest.raises(ValueError):  # the scene lives on the CPU
         SceneRunner(s, render_mode="3d", use_megakernel=True, device="meta")
     from oxylus_tpu_torch.assets.bake import bake_mesh
+    from oxylus_tpu_torch.assets.material import FLAG_ALPHA_MASK, FLAG_HAS_ALBEDO
+    from oxylus_tpu_torch.render.renderer2d import default_bindings
 
-    with pytest.raises(NotImplementedError, match="particle"):
-        SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=_cube_meshes(bake_mesh), device="cpu")
+    assert SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=_cube_meshes(bake_mesh),
+                       device="cpu")._has_particles
+    for flag, what in ((FLAG_HAS_ALBEDO, "texturing"), (FLAG_ALPHA_MASK, "alpha-masked")):
+        b = default_bindings(s.spec.padded_entities(), device="cpu")
+        b.materials.flags[0] |= flag
+        with pytest.raises(NotImplementedError, match=what):
+            SceneRunner(s, render_mode="3d", meshes=_cube_meshes(bake_mesh), bindings=b, device="cpu")
+        SceneRunner(s, render_mode="2d", bindings=b, device="cpu")  # the 2D path samples and masks itself
     audio = _pile_scene(TScene, tstate.SceneSpec, emitter=False)
     e = audio.create_entity("speaker")
     e.add("TransformComponent")

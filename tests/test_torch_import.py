@@ -51,6 +51,10 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.render.shadows",
     "oxylus_tpu_torch.render.gtao",
     "oxylus_tpu_torch.render.ssr",
+    "oxylus_tpu_torch.ops.blend2d",
+    "oxylus_tpu_torch.ops.raster2d",
+    "oxylus_tpu_torch.frame2d",
+    "oxylus_tpu_torch.frame3d",
 ]
 
 PROBE = f"""
@@ -88,12 +92,14 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Scene, build_flagship, entry, build_frame5_scene and SceneRunner resolve
+    """Scene, build_flagship, entry, the frame builders and SceneRunner resolve
     `device=None` to the card: without one they raise instead of using the CPU."""
     import pytest
     import torch
 
     from oxylus_tpu_torch.flagship import build_flagship, entry
+    from oxylus_tpu_torch.frame2d import build_frame2d_scene
+    from oxylus_tpu_torch.frame3d import build_frame3d_scene
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.runtime import SceneRunner
     from oxylus_tpu_torch.scene.scene import Scene
@@ -107,5 +113,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         entry()
     with pytest.raises(RuntimeError):
         build_frame5_scene(64, 64, n_objects=2, n_boxes=2)
+    with pytest.raises(RuntimeError):
+        build_frame2d_scene(64, 64, n_sprites=4)
+    with pytest.raises(RuntimeError):
+        build_frame3d_scene(64, 64, n_objects=2)
     with pytest.raises(RuntimeError):
         SceneRunner(Scene("s", device="cpu"))

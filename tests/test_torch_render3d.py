@@ -15,15 +15,19 @@ scene fills the frame:
   once), then the boxes back in the air (the memo misses, the shadow pages
   under the moved boxes re-render, and objects hidden in the first pyramid are
   revealed: the late pass runs);
-- runner parity: the port's `SceneRunner(**build_frame5_scene(...)[1])` for
-  three frames against the JAX runner built as `bench._build_frame5_runner`
-  does, its fused frame (`runtime.py:552-569`) composed from `frame_step`
-  with its compact kernel in interpret mode, `camera_from_state` and
-  `render`;
-- the golden scene (`tests/test_golden_images.py::_world`) with the `sky`,
-  `shadows` and `full` settings, against the JAX renderer on the same tile
-  path and against the stored goldens (made by the JAX decode path,
-  `use_pallas=False`).
+- runner parity (`tests/test_torch_render3d_runner.py`): the port's
+  `SceneRunner(**build_frame5_scene(...)[1])` for three frames against the JAX
+  runner built as `bench._build_frame5_runner` does, its fused frame
+  (`runtime.py:552-569`) composed from `frame_step` with its compact kernel in
+  interpret mode, `camera_from_state` and `render`;
+- the golden scene (`tests/test_torch_render3d_golden.py`,
+  `tests/test_golden_images.py::_world`) with the `sky`, `shadows` and `full`
+  settings, against the JAX renderer on the same tile path and against the
+  stored goldens (made by the JAX decode path, `use_pallas=False`).
+
+The three files share this module's helpers and its module-scoped shadow-map
+fixture; each runs its own JAX side, so the test workers take them in
+parallel.
 
 The JAX renderer runs its tile raster in interpret mode
 (`RenderSpec(gbuffer_interpret=True)`), and its `build_hiz` is patched, for this
@@ -64,13 +68,11 @@ import oxylus_tpu.render.shadows as jshadows
 from oxylus_tpu.assets.bake import bake_mesh as jbake_mesh
 from oxylus_tpu.ops import cull as jcull
 from oxylus_tpu.ops.raster3d import rasterize_pallas
-from oxylus_tpu.physics.state import PhysicsParams as JParams
 from oxylus_tpu.render import camera as jcamera
 from oxylus_tpu.render import pbr as jpbr
 from oxylus_tpu.render import postfx as jpostfx
 from oxylus_tpu.render.sky import AtmosphereParams as JAtmosphere
 from oxylus_tpu.runtime import SceneRunner as JRunner
-from oxylus_tpu.scene import frame as jframe
 from oxylus_tpu.scene import state as jstate
 from oxylus_tpu.scene.scene import Scene as JScene
 from oxylus_tpu_torch import bridge, frame5
@@ -93,10 +95,7 @@ torch.set_num_threads(1)
 
 W, H = 256, 144
 N_OBJECTS, N_BOXES, MAX_BODIES = 12, 40, 256
-DT = 1.0 / 40.0
-RUNNER_FRAMES = 3
 CAMERA_POS = (0.0, 3.0, 9.0)
-ATOL = {"pos": 5e-5, "linvel": 1e-3, "angvel": 5e-3, "quat": 1e-4}  # test_torch_frame.py's bounds
 PSNR_MIN = 40.0
 SHADOW_MAP, SHADOW_PAGES = 256, 4
 FRAME_KEYS = ("final", "visbuffer", "depth", "slot_packed_id", "bin_overflow", "expand_overflow", "shadow", "ao")
@@ -169,20 +168,26 @@ def _jax_sky_luts(renderer) -> None:
     renderer._sky_cache[JAtmosphere()] = (jnp.asarray(t_lut.numpy()), jnp.asarray(ms_lut.numpy()))
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """Everything the JAX package computes for this module, in one place (its
-    interpret-mode compiles are shared by the frame and runner runs)."""
-    runner, meshes = _jax_runner()
+def jax_renderer(runner):
+    """The JAX runner's renderer as `render(state, gscene, camera, materials,
+    atlas, prev) -> (frame resources, carry)`, eager: each op rounds on its
+    own, as the port's do (a jit fuses and contracts)."""
 
-    def _render(state, gscene, camera, materials, atlas, prev):
+    def render(state, gscene, camera, materials, atlas, prev):
         ctx = runner.renderer3d.render(state, gscene, camera, materials, atlas, runner.config, prev=prev,
                                        atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
                                        static_lights=runner._static_lights)
         return {k: ctx[k] for k in FRAME_KEYS}, ctx["carry"]
 
-    render = _render  # eager: each op rounds on its own, as the port's do (a jit fuses and contracts)
-    step = jax.jit(jframe.frame_step.__wrapped__, static_argnames=("spec", "has_bodies", "physics_mega"))
+    return render
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """The JAX package's side of this module: its runner's scene, gscene and
+    material table, and three renderer frames."""
+    runner, meshes = _jax_runner()
+    render = jax_renderer(runner)
     cam_idx = runner._resolve_camera_idx()
     aspect = jnp.float32(W / H)
     mats, atlas = runner.bindings.materials, runner.bindings.atlas
@@ -209,15 +214,6 @@ def jax_side():
             res, carry = render(st, runner.gscene, cam, mats, atlas, carry)
             frames.append(jax.device_get(dict(res, state=st, camera=cam, carry_keys=sorted(carry))))
         out["frames"] = frames
-        # runner parity: the fused frame, composed
-        state, ps, carry, images = runner.state, runner.ps, {}, []
-        for _ in range(RUNNER_FRAMES):
-            state, ps = step(state, ps, JParams(), jnp.float32(DT), runner.scene.spec, has_bodies=True,
-                             physics_mega=True)
-            cam = jcamera.camera_from_state(state, cam_idx, aspect)
-            res, carry = render(state, runner.gscene, cam, mats, atlas, carry)
-            images.append(np.asarray(res["final"]))
-        out["runner"] = dict(images=images, ps=jax.device_get(ps), carry=jax.device_get(carry))
     return out
 
 
@@ -463,100 +459,6 @@ def test_frame_from_the_jax_carry_matches_jax(jax_side):
                           static_lights=jax_side["static_lights"])
     assert psnr(ctx["final"].numpy(), f["final"]) >= PSNR_MIN
     assert (np.abs(ctx["shadow"].numpy() - f["shadow"]) <= 1e-6).mean() >= 0.99
-
-
-@pytest.fixture(scope="module")
-def port_runner():
-    scene, kw = frame5.build_frame5_scene(W, H, N_OBJECTS, N_BOXES, max_bodies=MAX_BODIES, device="cpu")
-    scene.set_field(scene.entity("camera").index, "TransformComponent", "position", CAMERA_POS)
-    runner = SceneRunner(scene, **kw)
-    images = [runner.step(DT).numpy() for _ in range(RUNNER_FRAMES)]
-    return runner, images
-
-
-def test_runner_bodies_match_jax(jax_side, port_runner):
-    runner, _ = port_runner
-    want = jax_side["runner"]["ps"]
-    got = bridge.physics_state_to_numpy(runner.ps)
-    for k, tol in ATOL.items():
-        np.testing.assert_allclose(got[k], np.asarray(getattr(want, k)), rtol=0, atol=tol, err_msg=k)
-    assert np.abs(got["linvel"]).max() > 0.5  # the boxes are falling
-
-
-def test_runner_images_match_jax(jax_side, port_runner):
-    runner, images = port_runner
-    for got, want in zip(images, jax_side["runner"]["images"]):
-        assert got.shape == (H, W, 3) and np.isfinite(got).all() and got.min() >= 0 and got.max() <= 1
-        assert psnr(got, want) >= PSNR_MIN
-    assert set(runner.carry) == set(jax_side["runner"]["carry"])
-    assert {"shadow_cache", "sky_view_lut", "aerial_lut", "ao_full", "shadow_full", "hiz"} <= set(runner.carry)
-    assert int(runner.carry["expand_overflow"]) == 0
-
-
-GOLDEN_SETTINGS = {
-    "sky": dict(atmosphere=True),
-    "shadows": dict(atmosphere=True, enable_shadows=True),
-    "full": dict(atmosphere=True, enable_shadows=True, config=dict(ssr_enable=True)),
-}
-
-
-def _to_u8(img) -> np.ndarray:
-    """`tests/test_golden_images.py::_render`'s quantisation."""
-    return np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-
-
-@pytest.fixture(scope="module")
-def golden_renders():
-    """The golden scene rendered by the JAX renderer on the tile path (the G-buffer
-    kernel in interpret mode) and by the port, with each golden's settings."""
-    from oxylus_tpu.assets.material import empty_gpu_materials
-    from oxylus_tpu.core.config import RendererConfig as JConfig
-    from oxylus_tpu.render.renderer3d import RendererInstance as JRenderer
-    from oxylus_tpu.render.renderer3d import RenderSpec as JSpec
-    from tests.test_golden_images import DATA, _world
-
-    state, gscene, cam = _world()
-    jspec = JSpec(width=W, height=H, max_visible_meshlets=64, gbuffer_interpret=True)
-    mats = empty_gpu_materials(8)
-    st_t, gs_t = bridge.scene_state_from_numpy(jax.device_get(state)), bridge.gpu_scene_from_numpy(jax.device_get(gscene))
-    mats_t, cam_t = bridge.gpu_materials_from_numpy(jax.device_get(mats)), _camera(cam)
-    out = {}
-    with jax_device_paths(), host_branches():
-        for name, kw in GOLDEN_SETTINGS.items():
-            cfg_kw = kw.get("config", {})
-            jkw = dict(atmosphere=JAtmosphere() if kw.get("atmosphere") else None,
-                       enable_shadows=kw.get("enable_shadows", False))
-            jrenderer = JRenderer(jspec)
-            _jax_sky_luts(jrenderer)
-            jimg = jrenderer.render(state, gscene, cam, mats, jnp.zeros((8, 8, 4), jnp.uint8),
-                                           dataclasses.replace(JConfig(), **cfg_kw), **jkw)["final"]
-            tkw = dict(jkw, atmosphere=bridge.atmosphere_from_jax(JAtmosphere()) if kw.get("atmosphere") else None)
-            timg = RendererInstance(_port_spec(jspec)).render(
-                st_t, gs_t, cam_t, mats_t, torch.zeros((8, 8, 4), dtype=torch.uint8),
-                dataclasses.replace(frame5.RendererConfig(), **cfg_kw), **tkw)["final"]
-            out[name] = dict(jax=_to_u8(jimg), port=_to_u8(timg.numpy()), golden=np.load(DATA / f"golden_{name}.npy"))
-    return out
-
-
-def _psnr_u8(a, b) -> float:
-    """`tests/test_golden_images.py::psnr`."""
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else 20.0 * np.log10(255.0) - 10.0 * np.log10(mse)
-
-
-@pytest.mark.parametrize("name", list(GOLDEN_SETTINGS))
-def test_golden_scene_matches_jax_tile_path(golden_renders, name):
-    """The port against the JAX renderer on the same (tile) path: ≥ 40 dB.
-    Against the stored golden, made by the JAX decode path with 1024² shadow
-    maps: ≥ 40 dB (the goldens' bound), and as close as the JAX tile path at
-    this module's 256² maps is (within 0.5 dB). All three PSNRs are in the
-    failure message."""
-    r = golden_renders[name]
-    p_jax, p_port_golden, p_jax_golden = (_psnr_u8(r["port"], r["jax"]), _psnr_u8(r["port"], r["golden"]),
-                                          _psnr_u8(r["jax"], r["golden"]))
-    msg = f"{name}: port vs JAX tile path {p_jax:.2f} dB, port vs golden {p_port_golden:.2f}, JAX tile vs golden {p_jax_golden:.2f}"
-    assert p_jax >= PSNR_MIN, msg
-    assert p_port_golden >= PSNR_MIN and p_port_golden >= p_jax_golden - 0.5, msg
 
 
 def test_static_memo_key_misses_intrinsics_and_collides_on_swaps():
