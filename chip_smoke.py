@@ -4,18 +4,20 @@
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
 G-buffer raster, the HiZ pyramid, the dense rigid-body kernel, the
-depth-only shadow raster and the sprite blend) from the sources in this
-checkout and drives the port's paths on the card: the fused
+depth-only shadow raster, the sprite blend and the banded rigid-body kernel)
+from the sources in this checkout and drives the port's paths on the card: the fused
 simulate-and-render 3D frame of the config-5 scene at its full size
 (1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), without
 the atmosphere, shadows, GTAO and SSR (phase 3) and whole (phase 9), the
 headless dense runner on the flagship (1022 boxes, capacity 1024), the
 default runner on `entry()`'s scene (255 boxes, capacity 512), the 2D runner
-on config 2 (phase 10) and the 3D frame with particles on config 3 (phase
-11), with bodies made from a fixed seed. Every kernel-vs-plain check runs the
-kernel and its plain PyTorch version on the same card tensors through the
-kernel's wrapper (`megakernel_substeps_compact`, with its sort and
-permutations; `megakernel_substeps`; `rasterize_depth`; `run_blend`).
+on config 2 (phase 10), the 3D frame with particles on config 3 (phase
+11) and the physics bench cells (phase 12), with bodies made from a fixed
+seed. Every kernel-vs-plain check runs the kernel and its plain PyTorch
+version on the same card tensors through the kernel's wrapper
+(`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
+sort and permutations; `megakernel_substeps`; `rasterize_depth`;
+`run_blend`).
 
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
@@ -91,7 +93,21 @@ permutations; `megakernel_substeps`; `rasterize_depth`; `run_blend`).
    the image finite in [0, 1]; the blend vs plain on a captured particle
    layer and on seeded inputs at its packed shapes with tied depths (exact,
    the particles being one constant colour); one frame rendered with the kernels and with the plain
-   versions from a shared state and carry (identical).
+   versions from a shared state and carry (identical);
+12. the physics bench cells (`oxylus_tpu_torch/bench.py`): the banded kernel
+   vs plain from the flagship's start state, 8 and 60 substeps in the bench's
+   configuration (iterations 3, warm 0.7, geom_every 2) and 8 in the cold one
+   (iterations 10), and 5 sleeping substeps on phase 4's pile with the sleep
+   threshold in a gap of its speeds (flags and timers equal); then, with every
+   launch count set to 0 just before, the `physics` cell through
+   `bench_physics(kernel="banded")` (its gates, 50 banded launches, body-steps/s,
+   the coverage at the kernel's BAND of 128 at start and end), one 60-substep
+   call from its pile timed against the plain version and the bound from that
+   pile's pairs (`megakernel_banded.pair_work`); `run_physics10k()` (the compact
+   kernel at capacity 10112, its gates, 26 launches), compact vs plain on its
+   end state for 4 substeps and one 60-substep call there timed against the
+   plain version and its bound; the `dense` and `mega=False` routes, one call
+   per window.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -228,6 +244,7 @@ PLAIN_ROUTES = {
     "oxylus_tpu_torch.physics.megakernel": ("run_dense", "dense_substeps_reference"),
     "oxylus_tpu_torch.ops.raster_depth": ("rasterize_depth", "rasterize_depth_reference"),
     "oxylus_tpu_torch.ops.blend2d": ("run_blend", "blend_tiles_reference"),
+    "oxylus_tpu_torch.physics.megakernel_banded": ("run_banded", "banded_substeps_reference"),
 }
 
 
@@ -283,6 +300,8 @@ def main() -> int:
     from oxylus_tpu_torch.ops import hiz as hiz_ops
     from oxylus_tpu_torch.flagship import entry
     from oxylus_tpu_torch.physics import megakernel as mk
+    from oxylus_tpu_torch import bench
+    from oxylus_tpu_torch.physics import megakernel_banded as mb
     from oxylus_tpu_torch.physics import megakernel_compact as mc
     from oxylus_tpu_torch.physics import step as pstep
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
@@ -348,7 +367,7 @@ def main() -> int:
           f"{runner.renderer3d.spec}", flush=True)
     runner.run(MAIN_WARMUP)
     kernel_mods = (mc, raster3d, hiz_ops)
-    every_mod = kernel_mods + (mk, raster_depth, blend2d)
+    every_mod = kernel_mods + (mk, raster_depth, blend2d, mb)
     for mod in every_mod:
         mod.LAUNCHES = 0
     # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
@@ -482,6 +501,7 @@ def main() -> int:
     print(f"[4] sleeping call: {n_asleep} of {int(dyn.sum())} boxes asleep (sleep velocity "
           f"{sleepy.sleep_velocity:.4f} m/s, in the speed gap {speeds[j].item():.4f}-{speeds[j + 1].item():.4f})")
     check(0 < n_asleep < int(dyn.sum()), "the sleeping call put no box, or every box, to sleep")
+    cell_pile = ps
 
     # ---- 5. raster and HiZ kernels vs plain at the main path's shapes ----------
     raster_calls, hiz_calls, bin_calls = [], [], []
@@ -1051,6 +1071,120 @@ def main() -> int:
     check(rendered == 1 and layer_eq, "config 3: kernel and plain particle layers differ")
     check(torch.equal(img_k, img_p), "config 3: kernel and plain frames differ")
 
+    # ---- 12. the physics bench cells: the banded kernel, physics10k, dense, substep
+    def banded_vs_plain(label, ps, params, tol, **kw):
+        """One wrapper call with the banded kernel and one routed to its plain
+        version, on the same card state; checks every output, returns the kernel's."""
+        got = mb.megakernel_substeps_banded(ps, params, DT, **kw)
+        with plain_on_card(mb):
+            want = mb.megakernel_substeps_banded(ps, params, DT, **kw)
+        err = state_err(got, want)
+        timer_err = (got.sleep_timer - want.sleep_timer).abs().max().item()
+        flips = int((got.asleep != want.asleep).sum())
+        print(f"[{label}] banded kernel vs plain max abs err {err} (bound {tol}), sleep-timer err {timer_err:.3g} s, "
+              f"sleep-flag mismatches {flips}", flush=True)
+        check(all(bool(torch.isfinite(getattr(got, k)).all()) for k in FIELDS), f"{label}: kernel output not finite")
+        check(flips == 0, f"{label}: sleep flags differ on {flips} bodies")
+        check(timer_err <= TOL_8, f"{label}: sleep timers differ by {timer_err}")
+        for k, e in err.items():
+            check(e <= (tol[k] if isinstance(tol, dict) else tol), f"{label}: {k} error {e}")
+        return got, max(err.values())
+
+    # 12a. the banded kernel vs plain: the bench's and the cold configuration
+    # from the flagship's start state, and sleeping on the physics cell's pile
+    bench_kw = dict(iterations=3, warm=0.7, geom_every=2)
+    banded_err = 0.0
+    for label, n_sub, kw, tol in (("12a: bench config, 8 substeps", 8, bench_kw, TOL_8),
+                                  ("12a: bench config, 60 substeps", 60, bench_kw, TOL_60),
+                                  ("12a: cold config, 8 substeps", 8, dict(iterations=10), TOL_8)):
+        banded_err = max(banded_err, banded_vs_plain(label, ps0, params, tol, n_substeps=n_sub, **kw)[1])
+    # Sleep threshold in the widest gap of the pile's speeds (|v|² + r²|ω|²,
+    # r = 0.5 m) after one substep, between the 85th and 99th percentile: the
+    # fastest boxes keep moving, boxes below it that no moving box touches fall
+    # asleep after 3 substeps (0.05 s against a 0.04 s sleep time); 5 substeps.
+    dyn = cell_pile.active & (cell_pile.body_type == BODY_DYNAMIC)
+    probe = mb.megakernel_substeps_banded(cell_pile, params, DT, n_substeps=1, **bench_kw)
+    speeds = (probe.linvel.pow(2).sum(1) + probe.angvel.pow(2).sum(1) * 0.25).sqrt()[dyn].sort().values
+    lo, hi = int(0.85 * len(speeds)), int(0.99 * len(speeds))
+    j = lo + int((speeds[lo + 1 : hi + 1] - speeds[lo:hi]).argmax())
+    sleepy = PhysicsParams(sleep_velocity=float(speeds[j] + speeds[j + 1]) / 2, sleep_time=0.04)
+    slept, err = banded_vs_plain("12a: sleeping, 5 substeps on the pile", cell_pile, sleepy, TOL_60, n_substeps=5,
+                                 sleep=True, **bench_kw)
+    banded_err = max(banded_err, err)
+    n_asleep = int(slept.asleep[dyn].sum())
+    print(f"[12a] sleeping call: {n_asleep} of {int(dyn.sum())} boxes asleep (sleep velocity "
+          f"{sleepy.sleep_velocity:.4f} m/s, in the speed gap {speeds[j].item():.4f}-{speeds[j + 1].item():.4f})")
+    check(0 < n_asleep < int(dyn.sum()), "the banded sleeping call put no box, or every box, to sleep")
+
+    # 12b. the physics cell through the banded route, every launch count set to 0 just before
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    cell = bench.bench_physics(kernel="banded", device=dev)
+    banded_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    launches[mb.__name__] = mb.LAUNCHES
+    pile = cell["state"]
+    cov0, cov1 = band_coverage_report(ps0, band=mb.BAND), band_coverage_report(pile, band=mb.BAND)
+    print(f"[12b] physics cell, banded route (1022 boxes, capacity 1024, 2 + 3 x 16 calls of 60 substeps): "
+          f"{cell['rate'] / 1e6:.3f} M body-steps/s (median window) ({card}); kernel launches {banded_launches}; "
+          f"the bench's coverage gates at band {cell['band']}: start {cell['coverage_start']}, end "
+          f"{cell['coverage_end']}; what the kernel's BAND {mb.BAND} covers: start {cov0}, end {cov1}", flush=True)
+    check(mb.LAUNCHES == 50, f"the banded route launched the banded kernel {mb.LAUNCHES} times, not 50")
+    dyn = pile.active & (pile.body_type == BODY_DYNAMIC)
+    min_y = pile.pos[dyn, 1].min().item()
+    check(bool(torch.isfinite(pile.pos).all()) and min_y > FLOOR_MID_Y, f"banded cell: end state (lowest {min_y})")
+    # one 60-substep call from the cell's own pile: kernel, plain, bound
+    call60 = lambda: mb.megakernel_substeps_banded(pile, params, DT, n_substeps=60, **bench_kw)
+    banded_ms = cuda_ms(call60, 10)
+    with plain_on_card(mb):
+        banded_plain_ms = cuda_ms(call60, 1)
+    work = mb.pair_work(pile, geom_every=2)
+    b = pile.num_slots
+    n_rebuild, sweeps = 30, 60 * (bench_kw["iterations"] + 1)
+    banded_bound = bound(
+        (mc.N_SCALARS + (mc.N_ROWS + mb.N_OUT) * b) * 4,
+        n_rebuild * (work["candidates"] * DENSE_OPS_TEST + sum(work[k] * n for k, n in DENSE_OPS_PAIR.items())
+                     + work["points"] * DENSE_OPS_POINT) + work["points"] * sweeps * DENSE_OPS_POINT_SWEEP,
+    )
+    print(f"[12b] banded 60-substep call from the cell's pile (B={b}, {work}): kernel {banded_ms:.3f} ms, plain "
+          f"{banded_plain_ms:.1f} ms, bound {banded_bound[0]:.6f} ms ({banded_bound[1]}) ({card})", flush=True)
+
+    # 12c. physics10k: the compact kernel at capacity 10112, then compact vs
+    # plain there on the cell's end state (the pile), and one call timed
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results10k = []
+    with capture(bench, "bench_physics", results10k, result=True):
+        cell10k = bench.run_physics10k(device=dev)
+    r10k = results10k[0]
+    pile10k = r10k["state"]
+    print(f"[12c] physics10k: {json.dumps(cell10k)} in {time.perf_counter() - t0:.1f} s ({card}); compact launches "
+          f"{mc.LAUNCHES}; dropped pairs {r10k['dropped']} of ~{r10k['pair_events']} pair events, per-launch max "
+          f"{r10k['dropped_max']}; coverage at band {r10k['band']}: start {r10k['coverage_start']}, end "
+          f"{r10k['coverage_end']}", flush=True)
+    check(mc.LAUNCHES == 2 + 3 * 8, f"physics10k launched the compact kernel {mc.LAUNCHES} times")
+    check(pile10k.num_slots == 10112 and r10k["n_bodies"] == 10001, f"physics10k capacity {pile10k.num_slots}")
+    kw10k = dict(iterations=3, warm=0.7, geom_every=2, band=r10k["band"], n_planes=count_hub_planes(pile10k))
+    kernel_vs_plain("12c: physics10k pile, 4 substeps", pile10k, params, TOL_60, n_substeps=4, **kw10k)
+    call10k = lambda: mc.megakernel_substeps_compact(pile10k, params, DT, n_substeps=60, **kw10k)
+    ms10k = cuda_ms(call10k, 5)
+    with plain_on_card(mc):
+        plain10k = cuda_ms(call10k, 1)
+    pairs10k = r10k["coverage_end"]["pairs"]
+    b = pile10k.num_slots
+    bound10k = bound((mc.N_SCALARS + (mc.N_ROWS + mc.N_OUT) * b) * 4,
+                     30 * (b * r10k["band"] * 6 + pairs10k * COMPACT_OPS_PAIR))
+    print(f"[12c] compact 60-substep call from the physics10k pile (B={b}, band {r10k['band']}, {pairs10k} "
+          f"overlapping pairs): kernel {ms10k:.3f} ms, plain {plain10k:.1f} ms, bound {bound10k[0]:.5f} ms "
+          f"({bound10k[1]}) ({card})", flush=True)
+
+    # 12d. the dense and the mega=False routes, one call per window
+    for kern, mega in (("dense", True), ("compact", False)):
+        r = bench.bench_physics(kernel=kern, mega=mega, calls=1, warmup=1, device=dev)
+        print(f"[12d] physics cell, {'kernel=' + kern if mega else 'mega=False (physics_substep)'}: "
+              f"{r['rate'] / 1e6:.4f} M body-steps/s ({card})", flush=True)
+        check(bool(torch.isfinite(r["state"].pos).all()), f"{kern}/{mega}: end state not finite")
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1071,6 +1205,8 @@ def main() -> int:
             raster_depth, depth_err, depth_ms, depth_plain_ms, depth_bound),
         row("blend2d", "oxylus_tpu_torch/ops/csrc/blend2d.cu", "oxylus_tpu/ops/raster2d_pallas.py:41", blend2d,
             max(err10, err11), blend_ms, blend_plain_ms, blend_bound),
+        row("banded_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_banded.cu",
+            "oxylus_tpu/physics/megakernel_banded.py:80", mb, banded_err, banded_ms, banded_plain_ms, banded_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

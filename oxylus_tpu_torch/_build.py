@@ -99,6 +99,10 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.dense_workspace_bytes.restype = ctypes.c_size_t
         lib.dense_substeps.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         lib.dense_substeps.restype = ci
+        lib.banded_workspace_bytes.argtypes = [ci]
+        lib.banded_workspace_bytes.restype = ctypes.c_size_t
+        lib.banded_substeps.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp]
+        lib.banded_substeps.restype = ci
         lib.kernel_error_string.argtypes = [ci]
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.raster_tiles.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]

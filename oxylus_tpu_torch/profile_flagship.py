@@ -7,6 +7,7 @@ Traces with `torch.profiler` (CUPTI) and prints on labelled lines, in turn:
 - `physics`: CALLS 60-substep calls of the compact kernel with the bench's
   adaptive band, after one warm-up call: device time per kernel (sum, count,
   share), the total, and the host's kernel-launch calls;
+- `physics-banded`: the same for the banded kernel (its fixed band of 128);
 - `dense-runner`: the headless dense runner
   (`SceneRunner(render_mode="none", use_megakernel=True)`) on the flagship,
   on its pile after WARM_FRAMES frames: FRAMES untraced frames, then FRAMES
@@ -27,6 +28,7 @@ import torch
 
 from .flagship import build_flagship
 from .physics import megakernel as mk
+from .physics import megakernel_banded as mb
 from .physics import megakernel_compact as mc
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
@@ -58,24 +60,30 @@ def _table(tag: str, events: list, top: int) -> float:
     return total
 
 
-def profile_physics(dev, acts) -> None:
-    """60-substep compact calls (the `physics` cell's shape)."""
+def profile_physics(dev, acts, tag: str) -> None:
+    """60-substep calls of the `physics` cell's kernel routes: the compact
+    kernel (`physics`, with the adaptive band) or the banded one
+    (`physics-banded`)."""
     ps = build_flagship(device=dev).physics_state
-    rep = band_coverage_report(ps)
-    kw = dict(n_substeps=60, iterations=3, warm=0.7, geom_every=2,
-              band=max(128, -(-(rep["max_rank_dist"] + 96) // 128) * 128), n_planes=count_hub_planes(ps))
+    kw = dict(n_substeps=60, iterations=3, warm=0.7, geom_every=2)
+    if tag == "physics":
+        rep = band_coverage_report(ps)
+        kw.update(band=max(128, -(-(rep["max_rank_dist"] + 96) // 128) * 128), n_planes=count_hub_planes(ps))
+        call = mc.megakernel_substeps_compact
+    else:
+        call = mb.megakernel_substeps_banded
     params = PhysicsParams()
-    ps = mc.megakernel_substeps_compact(ps, params, DT, **kw)
+    ps = call(ps, params, DT, **kw)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(CALLS):
-            ps = mc.megakernel_substeps_compact(ps, params, DT, **kw)
+            ps = call(ps, params, DT, **kw)
         torch.cuda.synchronize()
     events = _device_events(prof)
-    total = _table("physics", events, top=15)
-    print(f"physics device total: {total / 1e3:.3f} ms over {CALLS} calls = "
-          f"{total / 1e3 / CALLS:.3f} ms per call (band {kw['band']}, planes {kw['n_planes']})")
-    print(f"physics kernel launches: {_launches(prof)} for {CALLS} calls")
+    total = _table(tag, events, top=15)
+    print(f"{tag} device total: {total / 1e3:.3f} ms over {CALLS} calls = {total / 1e3 / CALLS:.3f} ms per call "
+          f"({', '.join(f'{k} {v}' for k, v in kw.items() if k != 'n_substeps')})")
+    print(f"{tag} kernel launches: {_launches(prof)} for {CALLS} calls")
 
 
 def profile_dense_runner(dev, acts) -> None:
@@ -107,7 +115,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    profile_physics(dev, acts)
+    profile_physics(dev, acts, "physics")
+    profile_physics(dev, acts, "physics-banded")
     profile_dense_runner(dev, acts)
 
 

@@ -219,8 +219,19 @@ class SceneRunner:
             self._script_accum = min(self._script_accum, h)
             scene.progress(dt)
         if scene._device_dirty:
+            old_n = int(self.state.alive.shape[0])
             self.state = scene.merge_host_edits(self.state)
             self.invalidate_camera()
+            new_n = int(self.state.alive.shape[0])
+            if new_n != old_n:
+                # the entity capacity grew mid-run: re-pad the per-entity
+                # bindings, keeping the material assignments (the runner keeps
+                # no other per-capacity cache; the camera index is re-resolved)
+                b = self.bindings
+                pad = torch.zeros((new_n - old_n,), dtype=b.entity_material_idx.dtype, device=self.device)
+                self.bindings = dataclasses.replace(
+                    b, entity_material_idx=torch.cat([b.entity_material_idx, pad])
+                )
             self._static_lights = max(1, int(np.sum(scene._alive & scene._comp_mask["LightComponent"])))
 
     def _script_frame_end(self, image) -> None:

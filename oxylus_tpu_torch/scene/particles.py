@@ -108,6 +108,12 @@ def particle_update(state: SceneState, spec: SceneSpec, dt: Tensor) -> SceneStat
     spawn_count = torch.clamp(spawn_count, max=MAX_SPAWNS_PER_FRAME)
 
     psys["system_time"] = t_new
+    comp = dict(state.comp)
+    comp["ParticleSystemComponent"] = psys
+    if spec.max_particles == 0:
+        # an empty pool (the JAX runner admits such scenes): the emitter
+        # clocks run, nothing spawns or integrates
+        return dataclasses.replace(state, comp=comp)
 
     # --- allocate ring slots: prefix sum over emitters ----------------------
     prefix = torch.cumsum(spawn_count, dim=0, dtype=torch.int32)
@@ -168,6 +174,4 @@ def particle_update(state: SceneState, spec: SceneSpec, dt: Tensor) -> SceneStat
         pos=torch.where(alive[:, None], pos, new_pool.pos),
     )
 
-    comp = dict(state.comp)
-    comp["ParticleSystemComponent"] = psys
     return dataclasses.replace(state, comp=comp, particles=new_pool)

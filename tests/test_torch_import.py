@@ -55,6 +55,7 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.ops.raster2d",
     "oxylus_tpu_torch.frame2d",
     "oxylus_tpu_torch.frame3d",
+    "oxylus_tpu_torch.bench",
 ]
 
 PROBE = f"""
