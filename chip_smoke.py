@@ -4,20 +4,22 @@
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
 G-buffer raster, the HiZ pyramid, the dense rigid-body kernel, the
-depth-only shadow raster, the sprite blend and the banded rigid-body kernel)
-from the sources in this checkout and drives the port's paths on the card: the fused
+depth-only shadow raster, the sprite blend, the banded rigid-body kernel and
+the group-hit G-buffer raster) from the sources in this checkout and drives
+the port's paths on the card: the fused
 simulate-and-render 3D frame of the config-5 scene at its full size
 (1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), without
 the atmosphere, shadows, GTAO and SSR (phase 3) and whole (phase 9), the
 headless dense runner on the flagship (1022 boxes, capacity 1024), the
 default runner on `entry()`'s scene (255 boxes, capacity 512), the 2D runner
 on config 2 (phase 10), the 3D frame with particles on config 3 (phase
-11) and the physics bench cells (phase 12), with bodies made from a fixed
-seed. Every kernel-vs-plain check runs the kernel and its plain PyTorch
-version on the same card tensors through the kernel's wrapper
+11), the physics bench cells (phase 12) and the config-5 frame through the
+group raster route (phase 13), with bodies made from a fixed seed. Every
+kernel-vs-plain check runs the kernel and its plain PyTorch version on the
+same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
 sort and permutations; `megakernel_substeps`; `rasterize_depth`;
-`run_blend`).
+`run_blend`; `run_groups`).
 
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
@@ -107,7 +109,25 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    kernel at capacity 10112, its gates, 26 launches), compact vs plain on its
    end state for 4 substeps and one 60-substep call there timed against the
    plain version and its bound; the `dense` and `mega=False` routes, one call
-   per window.
+   per window;
+13. the config-5 frame through the group raster route: `build_frame5_scene`
+   with `RenderSpec(raster_path="group", compact_raster=True)` (dense groups
+   of 64 from `compact_triangles`, 64-px tiles, 64 groups a tile): 2 warm-up
+   frames, then 60 frames with every launch count set to 0 just before; the
+   group raster launched in every frame and the tile raster never; the compact
+   kernel, HiZ and depth raster launched; the image finite in [0, 1],
+   `expand_overflow` 0, no box centre below y = -1 m, and each frame's
+   binning drop (group-tile pairs past 64 a tile, printed per frame) at most
+   5 % of its pairs. Then the group raster vs plain, exactly equal (depth
+   bits, vid, G-buffer bits), on one frame's captured passes (timed with CUDA
+   events against their plain versions and the bound from the work the
+   walked groups' slots need: the image pixels of each slot's span, the
+   smallest rectangle holding its covered pixels in the tile) and on seeded,
+   varied inputs (`seeded_group_inputs`, from `seeded_groups`): tile 32
+   and 64, `ml_near` given and not, `tile_base` ≠ 0, R = 32, 64 and 128, empty
+   tiles and full lists, depths tied across groups and slots, walks ended
+   early; and one frame rendered with the kernels and with the plain versions
+   from a shared state and carry (identical).
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -152,6 +172,10 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 RASTER_OPS_ENTRY_PIXEL = 53
 RASTER_OPS_COVERED = 6  # per covered (entry, pixel): max, reciprocal, multiply, the key's and + or, max
 RASTER_OPS_HIT = 45  # per hit pixel: 9 lanes × (2 mul + 2 add), the reciprocal, 8 multiplies
+# Group raster: per walked (tile, group) and live slot, the test of the slot's
+# screen bounds against the tile (4 compares); the planes and the cover test
+# (RASTER_OPS_ENTRY_PIXEL) then only at the image pixels of its span
+GROUP_OPS_SLOT_TILE = 4
 # per overlapping body pair at a rebuild: the box-box SAT over 6 face axes, each
 # two 23-operation extents, a 6-operation centre projection, 2 adds and a compare
 # (the solver's per-pair sweeps are not counted)
@@ -245,6 +269,7 @@ PLAIN_ROUTES = {
     "oxylus_tpu_torch.ops.raster_depth": ("rasterize_depth", "rasterize_depth_reference"),
     "oxylus_tpu_torch.ops.blend2d": ("run_blend", "blend_tiles_reference"),
     "oxylus_tpu_torch.physics.megakernel_banded": ("run_banded", "banded_substeps_reference"),
+    "oxylus_tpu_torch.ops.raster_groups": ("run_groups", "rasterize_groups_reference"),
 }
 
 
@@ -285,6 +310,121 @@ def state_err(got, want) -> dict:
     return {k: (getattr(got, k) - getattr(want, k)).abs().max().item() for k in FIELDS}
 
 
+def seeded_groups(seed, width, height, n_groups, n_slots, size, crowd):
+    """Synthetic dense triangle groups at width×height, made from a seed with
+    NumPy: `n_groups` groups of `n_slots` slots of screen-space triangles
+    (w = 1), near to far by group, `size` = (lo, hi) px across, centred in
+    the left four fifths of the image; with `crowd` > 0, groups [0, crowd)
+    gather near the top left and [crowd, 2·crowd) under the slab below, so
+    the tiles there list many groups. Then the ties the early-out and the
+    keys must get right: group 1's first two slots are a slab over the lower
+    left (x < 0.55·width, y > 0.45·height, past the image edge too, so the
+    tiles' padding pixels lie under it), at a depth of 31/32 on constant
+    depth planes (so it resolves to exactly that key), in front of the
+    groups behind it, so the tiles it covers end their walks early; group
+    2's first slot lies under the slab's second triangle at the same depth,
+    so that group's near bound equals the resolved depth there and the
+    early-out's strict compare decides whether it takes those pixels; every
+    5th group repeats its predecessor's triangles in the same slots (depths
+    tied across groups), every 7th slot the one before it (tied within a
+    group), a third of the triangles have one depth quantised to 1/64 (keys
+    tied on depth), and each group's last 3 slots are empty. Returns NumPy
+    arrays: coeffs (G, R, 5, 3), attr_planes (G, R, 9, 3) (the ss plane
+    first), consts (G, R, 8), valid (G, R), ml_near (G,) (each group's
+    largest vertex depth) and the groups' screen bounds
+    {ml_xmin, ml_xmax, ml_ymin, ml_ymax}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n = n_groups * n_slots
+    gi, si = np.arange(n) // n_slots, np.arange(n) % n_slots
+    cx, cy = 0.8 * width * rng.random(n_groups), height * rng.random(n_groups)
+    for c0, x0, y0 in ((0, 0.04, 0.07), (crowd, 0.18, 0.5)):
+        cx[c0 : c0 + crowd] = width * (x0 + 0.04 * rng.random(crowd))
+        cy[c0 : c0 + crowd] = height * (y0 + 0.07 * rng.random(crowd))
+    d = size[0] + (size[1] - size[0]) * rng.random(n)
+    vx = (cx[gi][:, None] + d[:, None] * (rng.random((n, 3)) - 0.5)).astype(f32)
+    vy = (cy[gi][:, None] + d[:, None] * (rng.random((n, 3)) - 0.5)).astype(f32)
+    zg = 0.95 - 0.9 * gi / n_groups  # near to far by group
+    vz = np.clip(zg[:, None] + 0.05 * (rng.random((n, 3)) - 0.5), 0.01, 0.99).astype(f32)
+    flat = rng.random(n) < 1 / 3
+    vz[flat] = (np.round(vz[flat].mean(1) * 64) / 64)[:, None]
+    slab, tie = (gi == 1) & (si < 2), (gi == 2) & (si == 0)
+    x1, y0, y1 = 0.55 * width, 0.45 * height, height + 64.0
+    vx[slab] = [[-8.0, x1, -8.0], [x1, x1, -8.0]]
+    vy[slab] = [[y0, y0, y1], [y0, y1, y1]]
+    vx[tie] = [0.53 * width, 0.53 * width, 0.33 * width]  # inside the slab's second triangle
+    vy[tie] = [0.55 * height, 0.97 * height, 0.97 * height]
+    vz[slab | tie] = 31 / 32
+    for dup, back in ((gi % 5 == 4, n_slots), (si % 7 == 6, 1)):
+        src = np.nonzero(dup)[0] - back
+        for v in (vx, vy, vz):
+            v[dup] = v[src]
+    valid = si < n_slots - 3
+    # barycentric planes λ_i = a_i·x + b_i·y + c_i, positive inside either winding
+    j, k = [1, 2, 0], [2, 0, 1]
+    dd = (vx[:, 1] - vx[:, 0]) * (vy[:, 2] - vy[:, 0]) - (vx[:, 2] - vx[:, 0]) * (vy[:, 1] - vy[:, 0])
+    dd = np.where(np.abs(dd) < 1e-3, f32(1e-3), dd)[:, None]
+    planes = np.stack([(vy[:, j] - vy[:, k]) / dd, (vx[:, k] - vx[:, j]) / dd,
+                       (vx[:, j] * vy[:, k] - vx[:, k] * vy[:, j]) / dd], -1)  # (n, 3, 3)
+    coeffs = np.concatenate([planes, (vz[:, :, None] * planes).sum(1, keepdims=True),
+                             planes.sum(1, keepdims=True)], 1).astype(f32)
+    coeffs[slab | tie, 3], coeffs[slab | tie, 4] = [0, 0, 31 / 32], [0, 0, 1]  # the depth is exactly 31/32
+    attr_planes = np.concatenate([coeffs[:, 4:5], rng.uniform(-1e-2, 1e-2, (n, 8, 3))], 1).astype(f32)
+    attr_planes[:, 1:, 2] = rng.uniform(-1, 1, (n, 8))
+    coeffs[~valid], attr_planes[~valid] = 0.0, 0.0
+    coeffs[~valid, 0, 2] = -1e30
+    consts = rng.random((n, 8)).astype(f32)
+    consts[~valid] = 0.0
+    per_group = lambda v, fill, red: red(np.where(valid, v, fill).reshape(n_groups, n_slots), 1).astype(f32)
+    bounds = {"ml_xmin": per_group(np.maximum(vx.min(1), 0), 1e9, np.min),
+              "ml_xmax": per_group(vx.max(1), -1e9, np.max),
+              "ml_ymin": per_group(np.maximum(vy.min(1), 0), 1e9, np.min),
+              "ml_ymax": per_group(vy.max(1), -1e9, np.max)}
+    shape = lambda a: a.reshape(n_groups, n_slots, *a.shape[1:])
+    return (shape(coeffs), shape(attr_planes), shape(consts), shape(valid), per_group(vz.max(1), -1.0, np.max),
+            bounds)
+
+
+def group_rows(coeffs, attr_planes, consts, valid, device):
+    """The group raster's slot rows (`raster3d.build_tile_comb`) of
+    `seeded_groups`' arrays, on `device`."""
+    from oxylus_tpu_torch.ops import raster3d
+
+    t = lambda a: torch.from_numpy(a).to(device)
+    zeros = torch.zeros(valid.shape, dtype=torch.int32, device=device)
+    dense = {"coeffs": t(coeffs), "attr_planes": t(attr_planes), "tri_valid": t(valid),
+             "tri_z": zeros.float(), "slot_material": zeros, "slot_instance": zeros, "packed_id": zeros}
+    return raster3d.build_tile_comb(dense, t(consts))
+
+
+def seeded_group_inputs(seed, tile, n_slots, with_near, band, dev):
+    """Group raster inputs at the main path's size (1920×1080, or the tile
+    rows `band` = (first, end) of it: tile_base ≠ 0): `seeded_groups` with
+    256 groups of 8–128 px triangles, two crowds of 100 (full lists, one
+    under the slab), binned per tile in group order by
+    `bin_meshlets_to_tiles` (64 a tile); ml_near, when given, suffix-maxed
+    in group order."""
+    from oxylus_tpu_torch.ops import raster_groups, setup3d
+
+    coeffs, attr_planes, consts, valid, ml_near, bounds = seeded_groups(seed, WIDTH, HEIGHT, 256, n_slots,
+                                                                        (8, 128), 100)
+    rows = group_rows(coeffs, attr_planes, consts, valid, dev)
+    tl, _ = setup3d.bin_meshlets_to_tiles({k: torch.from_numpy(v).to(dev) for k, v in bounds.items()}, WIDTH,
+                                          HEIGHT, tile, 64)
+    h, base = HEIGHT, 0
+    if band is not None:
+        tx = (WIDTH + tile - 1) // tile
+        base, h = band[0] * tx, (band[1] - band[0]) * tile
+        tl = tl[band[0] * tx : band[1] * tx].contiguous()
+    near_eo = torch.flip(torch.cummax(torch.flip(torch.from_numpy(ml_near), [0]), 0).values, [0]).to(dev)
+    near = raster_groups.near_table(tl, near_eo if with_near else None)
+    cnt = (tl >= 0).sum(1)
+    check(int(cnt.max()) == 64 and bool((cnt == 0).any()), f"seeded group inputs {seed}: no full or empty list")
+    return rows, tl, near, WIDTH, h, n_slots, tile, base
+
+
 def main() -> int:
     # ---- 1. set-up ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -296,7 +436,7 @@ def main() -> int:
     from oxylus_tpu_torch.frame2d import build_frame2d_scene
     from oxylus_tpu_torch.frame3d import build_frame3d_scene
     from oxylus_tpu_torch.frame5 import build_frame5_scene
-    from oxylus_tpu_torch.ops import blend2d, raster2d, raster3d, raster_depth, setup3d
+    from oxylus_tpu_torch.ops import blend2d, raster2d, raster3d, raster_depth, raster_groups, setup3d
     from oxylus_tpu_torch.ops import hiz as hiz_ops
     from oxylus_tpu_torch.flagship import entry
     from oxylus_tpu_torch.physics import megakernel as mk
@@ -367,7 +507,7 @@ def main() -> int:
           f"{runner.renderer3d.spec}", flush=True)
     runner.run(MAIN_WARMUP)
     kernel_mods = (mc, raster3d, hiz_ops)
-    every_mod = kernel_mods + (mk, raster_depth, blend2d, mb)
+    every_mod = kernel_mods + (mk, raster_depth, blend2d, mb, raster_groups)
     for mod in every_mod:
         mod.LAUNCHES = 0
     # per frame: its bin_overflow and where its raster calls' counts begin in `counts`
@@ -1185,6 +1325,149 @@ def main() -> int:
               f"{r['rate'] / 1e6:.4f} M body-steps/s ({card})", flush=True)
         check(bool(torch.isfinite(r["state"].pos).all()), f"{kern}/{mega}: end state not finite")
 
+    # ---- 13. the config-5 frame through the group raster -----------------------------
+    t0 = time.perf_counter()
+    scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    runner_kw["render_spec"] = dataclasses.replace(runner_kw["render_spec"], raster_path="group", compact_raster=True)
+    runner = SceneRunner(scene, **runner_kw)
+    gspec = runner.renderer3d.spec
+    print(f"[13] config-5 runner on the group raster built in {time.perf_counter() - t0:.2f} s: raster_group "
+          f"{gspec.raster_group}, tile {gspec.tile}, meshlets_per_tile {gspec.meshlets_per_tile}, compact_raster "
+          f"{gspec.compact_raster}", flush=True)
+    check(gspec.raster_group == 64 and gspec.tile == 64 and gspec.meshlets_per_tile == 64, f"group spec {gspec}")
+    runner.run(MAIN_WARMUP)
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    lists, frames, group_per_frame = [], [], []
+    t0 = time.perf_counter()
+    with capture(raster_groups, "run_groups", lists, keep=lambda args: args[1]):
+        for _ in range(MAIN_FRAMES):
+            n0, g0 = len(lists), raster_groups.LAUNCHES
+            image = runner.step()
+            frames.append((runner.carry["bin_overflow"], n0))
+            group_per_frame.append(raster_groups.LAUNCHES - g0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    group_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    launches[raster_groups.__name__] = raster_groups.LAUNCHES
+    ps = runner.ps
+    dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
+    carry = runner.carry
+    ends = [n0 for _, n0 in frames[1:]] + [len(lists)]
+    # a frame's binning drop: meshlet-group-tile pairs past meshlets_per_tile, as a share of its pairs
+    drops = []
+    for (dropped, n0), n1 in zip(frames, ends):
+        pairs = sum(int((tl >= 0).sum()) for tl in lists[n0:n1])
+        drops.append((int(dropped) / max(pairs + int(dropped), 1), int(dropped), pairs))
+    worst = max(drops)
+    min_y = ps.pos[dyn, 1].min().item()
+    print(f"[13] config-5 runner, group raster: {MAIN_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall:.3f} s = "
+          f"{MAIN_FRAMES / wall:.2f} frames/s ({card}); kernel launches {group_launches}; group raster launches per "
+          f"frame {group_per_frame}; binning drops per frame {[d[1] for d in drops]}, worst {100 * worst[0]:.3f} % "
+          f"({worst[1]} of {worst[1] + worst[2]} pairs); expand_overflow {int(carry['expand_overflow'])}; image mean "
+          f"{image.mean().item():.5f}; lowest box centre y = {min_y:.4f} m", flush=True)
+    check(all(n >= 1 for n in group_per_frame), f"group raster launches per frame {group_per_frame}")
+    check(group_launches[raster3d.__name__] == 0, "the group route launched the tile raster")
+    for mod in (mc, hiz_ops, raster_depth):
+        check(group_launches[mod.__name__] > 0, f"the group-route frame never launched the {mod.__name__} kernel")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(image.shape)}")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0 and image.max().item() <= 1.0,
+          "group route: image not finite or outside [0, 1]")
+    check(int(carry["expand_overflow"]) == 0, "group route: the meshlet expansion dropped work")
+    check(worst[0] <= BIN_DROP_GATE, f"group route: binning dropped {100 * worst[0]:.3f} % of a frame's pairs")
+    check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "group route: state not finite")
+    check(min_y > FLOOR_MID_Y, "group route: a box fell through the floor")
+
+    def group_vs_plain(label, args, timed=True):
+        """The group raster kernel and its plain version on the same inputs:
+        depth bits, vid and G-buffer bits exactly equal. With `timed`, both
+        timed, and the bound from the work these inputs need: per walked
+        (tile, group), each live slot's test against the tile, then, per
+        slot, the planes at the image pixels of its span (the smallest
+        rectangle holding its covered pixels in the tile), the covered
+        (slot, pixel) pairs and the hit pixels' attributes; the lists, the
+        walked groups' coefficients, the winners' attribute rows and the
+        outputs once."""
+        rows, tl, near, w, h, n_slots, tile, base = args
+        got = raster_groups.run_groups(*args)
+        want_d, want_v, want_g, walked, covered, spans = raster_groups._raster_groups_plain(*args, measure=True)
+        torch.cuda.synchronize()
+        d_bits = int((got[0].view(torch.int32) != want_d.view(torch.int32)).sum())
+        v_diff = int((got[1] != want_v).sum())
+        g_bits = int((got[2].view(torch.int16) != want_g.view(torch.int16)).sum())
+        err = max((got[0] - want_d).abs().max().item(), (got[2].float() - want_g.float()).abs().max().item())
+        cnt = (tl >= 0).sum(1)
+        hit = got[1] >= 0
+        k_walk = torch.arange(tl.shape[1], device=dev)[None, :] < walked[:, None]
+        groups = torch.clamp(tl, min=0)[k_walk].long()
+        live = (rows[:, raster3d.PLANE_OFF + 2] != -1e30).reshape(-1, n_slots).sum(1)
+        slot_pairs = int(live[groups].sum())
+        used = torch.unique(groups)
+        win_rows = torch.unique(got[1][hit]).numel()
+        n_hit, n_cov, n_span = int(hit.sum()), int(covered.sum()), int(spans.sum())
+        msg = (f"[{label}] {w}x{h}, tile {tile}, R {n_slots}, tile_base {base}, {tl.shape[0]} tiles, "
+               f"{int(cnt.sum())} (tile, group) pairs listed, {int(walked.sum())} walked ({slot_pairs} live slot "
+               f"walks, {slot_pairs * tile * tile} slot-pixels), worst list {int(cnt.max())}, "
+               f"{int((cnt == 0).sum())} empty tiles, {n_span} span pixels, {n_cov} covered (slot, pixel) pairs, "
+               f"{n_hit} hit pixels: depth bit mismatches {d_bits}, vid mismatches {v_diff}, gb bit mismatches "
+               f"{g_bits}")
+        check(d_bits == 0 and v_diff == 0 and g_bits == 0, f"{label}: group raster kernel != plain")
+        if not timed:
+            print(msg, flush=True)
+            return err, walked, cnt
+        n_bytes = (tl.numel() + near.numel() + int(live[used].sum()) * 15 + win_rows * 64) * 4 + w * h * 40
+        bd = bound(n_bytes, slot_pairs * GROUP_OPS_SLOT_TILE + n_span * RASTER_OPS_ENTRY_PIXEL
+                   + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT)
+        ms = cuda_ms(lambda: raster_groups.run_groups(*args), 20)
+        plain = cuda_ms(lambda: raster_groups._raster_groups_plain(*args), 2)
+        print(f"{msg}; kernel {ms:.4f} ms, plain {plain:.2f} ms, bound {bd[0]:.5f} ms ({bd[1]}; bytes "
+              f"{n_bytes / PEAK_BYTES * 1e3:.5f} ms) ({card})", flush=True)
+        return err, ms, plain, bd
+
+    # one frame's group raster inputs: the early pass, and the late pass when one runs
+    group_calls = []
+    for _ in range(10):
+        group_calls.clear()
+        with capture(raster_groups, "run_groups", group_calls):
+            runner.step()
+        if len(group_calls) == 2:
+            break
+    group_rows = []
+    for i, args in enumerate(group_calls):
+        group_rows.append(group_vs_plain(f"13: group raster, {('early', 'late')[i]} pass", args))
+    group_err = max(r[0] for r in group_rows)
+
+    early_outs = 0
+    for seed, tile, n_slots, with_near, band in ((13, 64, 64, True, None), (14, 32, 128, False, None),
+                                                 (15, 32, 32, True, (6, 24)), (16, 64, 128, True, (3, 12))):
+        args = seeded_group_inputs(seed, tile, n_slots, with_near, band, dev)
+        err, walked, cnt = group_vs_plain(f"13: group raster, seeded {seed}", args, timed=False)
+        group_err = max(group_err, err)
+        early_outs += int((walked < cnt).sum())
+    print(f"[13] seeded inputs: {early_outs} tiles ended their walk early", flush=True)
+    check(early_outs > 0, "no seeded tile ended its walk early")
+
+    # one frame with the kernels and with the plain versions, from a shared state and carry
+    prev = runner.carry
+    runner.step()
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    render = lambda: runner.renderer3d.render(
+        runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+        prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
+        static_lights=runner._static_lights,
+    )["final"]
+    g0 = raster_groups.LAUNCHES
+    img_k = render()
+    rendered = raster_groups.LAUNCHES - g0
+    with plain_on_card(raster_groups, hiz_ops, raster_depth):
+        img_p = render()
+    print(f"[13] one group-route frame rendered with the kernels ({rendered} group raster launches) and with the "
+          f"plain versions from a shared state and carry: PSNR {psnr(img_k, img_p)} dB, identical "
+          f"{bool(torch.equal(img_k, img_p))}", flush=True)
+    check(rendered > 0, "the shared-carry frame launched no group raster")
+    check(torch.equal(img_k, img_p), "group route: kernel and plain frames differ")
+
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1207,6 +1490,8 @@ def main() -> int:
             max(err10, err11), blend_ms, blend_plain_ms, blend_bound),
         row("banded_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_banded.cu",
             "oxylus_tpu/physics/megakernel_banded.py:80", mb, banded_err, banded_ms, banded_plain_ms, banded_bound),
+        row("raster_groups", "oxylus_tpu_torch/ops/csrc/raster_groups.cu", "oxylus_tpu/ops/raster3d.py:355",
+            raster_groups, group_err, group_rows[0][1], group_rows[0][2], group_rows[0][3]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

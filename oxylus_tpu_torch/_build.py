@@ -113,5 +113,7 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.raster_depth.restype = ci
         lib.blend2d.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.blend2d.restype = ci
+        lib.raster_groups.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.raster_groups.restype = ci
         _LIB = lib
     return _LIB

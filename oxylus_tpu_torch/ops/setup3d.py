@@ -9,8 +9,12 @@ planes, and per-triangle screen bounds. Then per-tile triangle shortlists for
 the tile raster (`bin_triangles_per_tile`), built from per-tile meshlet lists.
 Entry order and counts must equal the JAX package's: the vid encodes the entry.
 
+The group raster (`RenderSpec(raster_path="group")`) rasters dense triangle
+groups instead: `compact_triangles` re-groups a pass's surviving triangles, or
+`passthrough_groups` keeps the source meshlets as the groups; either is binned
+per tile by `bin_meshlets_to_tiles` on its group bounds.
+
 Visbuffer id packing: (visible-meshlet slot << 8) | local triangle.
-`compact_triangles` serves the group raster, a later slice.
 """
 
 from __future__ import annotations
@@ -173,21 +177,143 @@ def setup_triangles(
     }
 
 
+def compact_triangles(
+    setup: dict,
+    tri_mask: Tensor,       # (VM, R) triangles to keep (validity ∧ pass visibility)
+    slot_material: Tensor,  # (VM,) material index per source meshlet
+    slot_instance: Tensor,  # (VM,) instance index per source meshlet
+    group: int = 64,        # triangles per dense raster group
+    width: float = 1920.0,
+    height: float = 1080.0,
+    mat_rows: Tensor | None = None,
+) -> dict:
+    """Re-group a pass's surviving triangles into dense raster groups of
+    `group` slots (the reference's `cull_triangles` compaction).
+
+    Source meshlets are ordered by (coarse depth bucket, 6-bit screen morton
+    code of their clamped bounds' centre), meshlets without a surviving
+    triangle last; their surviving triangles are packed in that order, and
+    every per-triangle field rides one combined row gather (integers as
+    float32, exact below 2^24). The sort is stable: meshlets with equal keys
+    keep their cull order. The JAX package sorts without asking for
+    stability (`tests/test_torch_raster_groups.py` checks what its CPU sort
+    gives).
+
+    Returns coeffs (G, group, 5, 3) (unused slots: zeros and an e0 constant of
+    -1e30, never covering), attr_planes (G, group, 9, 3), tri_valid, the
+    groups' screen bounds ml_xmin/xmax/ymin/ymax and nearest depth ml_near,
+    slot_material / slot_instance / packed_id per dense slot (0, 0, -1 where
+    unused), slot_rows (None), count (surviving triangles, 0-d int32), and,
+    beyond the JAX dict, tri_z (G, group): each slot's nearest depth (-1
+    where unused), the column `raster3d.build_tile_comb` reads."""
+    if mat_rows is not None:
+        raise NotImplementedError("texturing (the slot_rows material rows) is not ported to oxylus_tpu_torch yet")
+    dev = tri_mask.device
+    vm, r = tri_mask.shape
+    n = vm * r
+    n_groups = n // group
+    xmin = torch.clamp(setup["tri_xmin"], 0.0, width)
+    xmax = torch.clamp(setup["tri_xmax"], -1.0, width)
+    ymin = torch.clamp(setup["tri_ymin"], 0.0, height)
+    ymax = torch.clamp(setup["tri_ymax"], -1.0, height)
+    tz = setup["sxyz"][..., 2].max(-1).values  # (VM, R) per-triangle nearest z
+
+    # meshlet-level (depth bucket, morton) order
+    bits = 6
+    any_tri = tri_mask.any(1)
+    mx0 = torch.where(tri_mask, xmin, 1e9).min(1).values
+    mx1 = torch.where(tri_mask, xmax, -1e9).max(1).values
+    my0 = torch.where(tri_mask, ymin, 1e9).min(1).values
+    my1 = torch.where(tri_mask, ymax, -1e9).max(1).values
+    m_near = torch.where(tri_mask, tz, -1.0).max(1).values
+    cx = torch.clamp((mx0 + mx1) * (0.5 / width) * (1 << bits), 0, (1 << bits) - 1).to(torch.int32)
+    cy = torch.clamp((my0 + my1) * (0.5 / height) * (1 << bits), 0, (1 << bits) - 1).to(torch.int32)
+    mo = torch.zeros_like(cx)
+    for b in range(bits):
+        mo = mo | (((cx >> b) & 1) << (2 * b)) | (((cy >> b) & 1) << (2 * b + 1))
+    zb = torch.clamp(((1.0 - m_near) * 4.0).to(torch.int32), 0, 3)
+    key = torch.where(any_tri, zb * (1 << 20) + mo, 1 << 30)
+    perm = torch.sort(key, stable=True).indices  # (VM,) meshlet order
+
+    # compaction targets: index math only; lanes not kept write past the end
+    mask_o = tri_mask[perm].reshape(n)
+    slots = torch.cumsum(mask_o.to(torch.int32), 0, dtype=torch.int32) - 1
+    count = torch.clamp(slots[-1] + 1, min=0)
+    src_flat = (perm[:, None] * r + torch.arange(r, device=dev)).reshape(n)
+    target = torch.where(mask_o, slots.long(), n)
+    final_src = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    final_src[target] = src_flat
+    final_src = final_src[:n]
+    valid = torch.arange(n, device=dev) < count
+
+    # one combined row gather of every per-triangle field
+    n_attr = setup["attr_planes"].shape[2]
+    cols = [
+        setup["coeffs"].reshape(vm, r, 15),
+        setup["attr_planes"].reshape(vm, r, n_attr * 3),
+        torch.stack([xmin, xmax, ymin, ymax, tz], dim=-1),
+        slot_material.to(torch.float32)[:, None, None].expand(vm, r, 1),
+        slot_instance.to(torch.float32)[:, None, None].expand(vm, r, 1),
+        setup["packed_id"].to(torch.float32)[..., None],  # < 2^24, f32-exact
+    ]
+    d = torch.cat(cols, dim=-1).reshape(n, 15 + n_attr * 3 + 8)[final_src]
+
+    coeffs = torch.where(valid[:, None], d[:, 0:15], 0.0).reshape(n, 5, 3)
+    coeffs[:, 0, 2] = torch.where(valid, coeffs[:, 0, 2], -1e30)
+    attr_planes = torch.where(valid[:, None], d[:, 15 : 15 + n_attr * 3], 0.0)
+    o = 15 + n_attr * 3
+    big = 1e9
+    xmin_d = torch.where(valid, d[:, o + 0], big).reshape(n_groups, group)
+    xmax_d = torch.where(valid, d[:, o + 1], -big).reshape(n_groups, group)
+    ymin_d = torch.where(valid, d[:, o + 2], big).reshape(n_groups, group)
+    ymax_d = torch.where(valid, d[:, o + 3], -big).reshape(n_groups, group)
+    tz_d = torch.where(valid, d[:, o + 4], -1.0).reshape(n_groups, group)
+    mat_d = torch.where(valid, d[:, o + 5].to(torch.int32), 0)
+    inst_d = torch.where(valid, d[:, o + 6].to(torch.int32), 0)
+    pid_d = torch.where(valid, d[:, o + 7].to(torch.int32), -1)
+    return {
+        "coeffs": coeffs.reshape(n_groups, group, 5, 3),
+        "attr_planes": attr_planes.reshape(n_groups, group, n_attr, 3),
+        "tri_valid": valid.reshape(n_groups, group),
+        "ml_xmin": xmin_d.min(1).values,
+        "ml_xmax": xmax_d.max(1).values,
+        "ml_ymin": ymin_d.min(1).values,
+        "ml_ymax": ymax_d.max(1).values,
+        "ml_near": tz_d.max(1).values,
+        "slot_material": mat_d.reshape(n_groups, group),
+        "slot_instance": inst_d.reshape(n_groups, group),
+        "packed_id": pid_d.reshape(n_groups, group),
+        "slot_rows": None,
+        "count": count,
+        "tri_z": tz_d,
+    }
+
+
 def passthrough_groups(setup: dict, tri_mask: Tensor, slot_material: Tensor, slot_instance: Tensor) -> dict:
     """Dense-group dict without re-grouping: source meshlets are the raster
-    groups. Only the fields the tile path's shared slot rows read
-    (`raster3d.build_tile_comb`); binning reads `passthrough_bounds`."""
+    groups. The fields the shared slot rows read (`raster3d.build_tile_comb`)
+    and those the group raster's binning and early-out read (group bounds,
+    ml_near, count), as the JAX function gives them; the tile path's binning
+    reads `passthrough_bounds`."""
     vm, r = tri_mask.shape
     tz = torch.max(setup["sxyz"][..., 2], dim=-1).values  # (VM, R) per-tri nearest z
     coeffs = torch.where(tri_mask[..., None, None], setup["coeffs"], 0.0)
     coeffs[..., 0, 2] = torch.where(tri_mask, coeffs[..., 0, 2], -1e30)
+    xmin = torch.clamp(setup["tri_xmin"], min=0.0)
+    ymin = torch.clamp(setup["tri_ymin"], min=0.0)
     return {
         "coeffs": coeffs,
         "attr_planes": torch.where(tri_mask[..., None, None], setup["attr_planes"], 0.0),
         "tri_valid": tri_mask,
+        "ml_xmin": torch.where(tri_mask, xmin, 1e9).min(1).values,
+        "ml_xmax": torch.where(tri_mask, setup["tri_xmax"], -1e9).max(1).values,
+        "ml_ymin": torch.where(tri_mask, ymin, 1e9).min(1).values,
+        "ml_ymax": torch.where(tri_mask, setup["tri_ymax"], -1e9).max(1).values,
+        "ml_near": torch.where(tri_mask, tz, -1.0).max(1).values,
         "slot_material": slot_material[:, None].expand(vm, r),
         "slot_instance": slot_instance[:, None].expand(vm, r),
         "packed_id": torch.where(tri_mask, setup["packed_id"], -1),
+        "count": tri_mask.sum(dtype=torch.int32),
         "tri_z": torch.where(tri_mask, tz, -1.0),
     }
 

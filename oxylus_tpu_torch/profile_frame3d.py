@@ -1,14 +1,17 @@
 """Where the time goes on the card, for the fused simulate-and-render 3D frame
 and for the 2D frame.
 
-    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|3|2]
+    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|3|2] [--raster-path tile|group]
 
 Builds the full config-5 scene (`frame5.build_frame5_scene`, 1920×1080, 150
 objects, 255 boxes; atmosphere, clipmap shadows, GTAO, SSR), with
 `--config 3` the config-3 scene (`frame3d.build_frame3d_scene`, 200 objects,
 8 point lights, 3 emitters; atmosphere, clipmap shadows, GTAO and the
 Forward2D particle layer), or with `--config 2` the 2D scene
-(`frame2d.build_frame2d_scene`, 512 sprites, 2 emitters), runs 2 warm-up
+(`frame2d.build_frame2d_scene`, 512 sprites, 2 emitters); with
+`--raster-path group` a 3D scene renders through the group raster route
+(`RenderSpec(raster_path="group", compact_raster=True)`: `compact_triangles`
+and the group kernel, a stage of its own). It runs 2 warm-up
 frames and FRAMES untraced frames, then traces FRAMES more with
 `torch.profiler` (CUPTI) and prints, on labelled lines (`frame3d`, or
 `frame2d` for config 2):
@@ -17,12 +20,13 @@ frames and FRAMES untraced frames, then traces FRAMES more with
 - `device busy per frame`: the sum of the device activities' durations per
   frame (one stream) and its share of the traced and untraced wall time;
 - `kernel launches per frame`: the host's kernel-launch calls, the launches of
-  the port's own kernels (compact, raster, HiZ, depth raster, sprite blend)
+  the port's own kernels (compact, raster, HiZ, depth raster, sprite blend, group raster)
   per frame, and the host reads (device-to-host copies) per frame;
 - `stage <name>`: per frame, the device time of the kernels each stage
   launched, the stage's span on the device's timeline and its host time, by
   `torch.profiler.record_function` ranges put around the stage functions for
-  the traced frames only. In 3D: physics, the raster passes, HiZ, sky, the
+  the traced frames only. In 3D: physics, the raster passes (on the group
+  route also its compaction and binning), HiZ, sky, the
   shadow maps with each clipmap level and tier, resolve, contact shadows,
   GTAO, PBR, SSR, aerial perspective, the particle layer, post. In 2D: the
   frame step, the sprite and particle assembly around the raster, and inside
@@ -38,6 +42,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import subprocess
 import time
 
@@ -47,18 +52,18 @@ from . import runtime
 from .frame2d import build_frame2d_scene
 from .frame3d import build_frame3d_scene
 from .frame5 import build_frame5_scene
-from .ops import blend2d, hiz, raster2d, raster3d, raster_depth
+from .ops import blend2d, hiz, raster2d, raster3d, raster_depth, raster_groups
 from .physics import megakernel_compact as mc
 from .profile_flagship import _device_events, _launches, _table
 from .render import gtao, renderer2d, renderer3d, shadows, sky
 
 # name prefixes of the port's own kernels, as `kernel_name` gives them
 OWN_KERNELS = {"compact": "k_", "raster": "raster_tiles_kernel", "hiz": "hiz_", "depth raster": "raster_depth_kernel",
-               "blend": "blend2d_kernel"}
+               "blend": "blend2d_kernel", "group raster": "raster_groups_kernel"}
 # the stages that launch each own kernel, the enclosing ones too (the depth
 # raster: the clipmap level, per call)
 OWN_STAGES_3D = {"compact": ("physics (frame_step)",), "raster": ("tile raster",), "hiz": ("HiZ",),
-                 "blend": ("particles (Forward2D)",)}
+                 "blend": ("particles (Forward2D)",), "group raster": ("group raster",)}
 OWN_STAGES_2D = {"blend": ("raster: blend (packing + kernel)", "raster (sort, binning, tiles, blend)",
                            "2D render (all)")}
 
@@ -66,6 +71,9 @@ OWN_STAGES_2D = {"blend": ("raster: blend (packing + kernel)", "raster (sort, bi
 STAGES_3D = (
     (runtime, "frame_step", "physics (frame_step)"),
     (raster3d, "run_tiles", "tile raster"),
+    (renderer3d, "compact_triangles", "group route: compact_triangles"),
+    (renderer3d, "bin_meshlets_to_tiles", "group route: binning"),
+    (raster_groups, "run_groups", "group raster"),
     (hiz, "build_hiz", "HiZ"),
     (sky, "sky_view_lut", "sky: view LUT"),
     (sky, "sample_sky_view", "sky: background"),
@@ -179,6 +187,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--config", type=int, choices=sorted(BUILDERS, reverse=True), default=5)
+    ap.add_argument("--raster-path", choices=("tile", "group"), default="tile")
     args = ap.parse_args()
     frames = args.frames
     if not torch.cuda.is_available():
@@ -187,15 +196,19 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
     two_d = args.config == 2
     tag = "frame2d" if two_d else "frame3d"
-    print(f"{tag} config {args.config}")
+    if two_d and args.raster_path != "tile":
+        raise SystemExit("--raster-path is a 3D option")
+    print(f"{tag} config {args.config}, raster path {args.raster_path}")
     scene, kw = BUILDERS[args.config](1920, 1080, device="cuda")
+    if args.raster_path == "group":
+        kw["render_spec"] = dataclasses.replace(kw["render_spec"], raster_path="group", compact_raster=True)
     runner = runtime.SceneRunner(scene, **kw)
     runner.run(2)
     t0 = time.perf_counter()
     runner.run(frames)
     untraced = (time.perf_counter() - t0) / frames
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    mods = (mc, raster3d, hiz, raster_depth, blend2d)
+    mods = (mc, raster3d, hiz, raster_depth, blend2d, raster_groups)
     counts0 = [m.LAUNCHES for m in mods]
     levels: list[str] = []
     with stage_ranges(levels, STAGES_2D if two_d else STAGES_3D), torch.profiler.profile(activities=acts) as prof:
@@ -220,7 +233,7 @@ def main() -> None:
           f"{len(events) / frames:.1f} device activities per frame")
     print(f"{tag} kernel launches per frame: {_launches(prof) / frames:.1f} host launch calls; wrapper calls "
           f"compact {own[0]:.2f}, raster {own[1]:.2f}, hiz {own[2]:.2f}, depth raster {own[3]:.2f}, "
-          f"blend {own[4]:.2f}; "
+          f"blend {own[4]:.2f}, group raster {own[5]:.2f}; "
           f"host reads (device-to-host copies) {reads:.2f}")
 
 

@@ -4,15 +4,23 @@
 A fixed stage sequence with injectable before/after callbacks per stage and a
 named-resource dict passed between stages. It runs: culling (instance cull +
 LOD, meshlet expansion, meshlet cull sorted nearest first), triangle setup, the
-tile G-buffer raster with the two-pass HiZ occlusion protocol (early pass
+G-buffer raster with the two-pass HiZ occlusion protocol (early pass
 against the previous frame's pyramid, pyramid rebuild, late pass for what was
-revealed, merge, second rebuild), G-buffer unpack, the atmosphere (sky LUTs
+revealed, merge, second rebuild) on one of two routes, G-buffer unpack, the atmosphere (sky LUTs
 cached per `AtmosphereParams`, sky-view LUT, background and SH-2 ambient),
 page-cached clipmap shadows with their resolve and contact shadows, GTAO,
 PBR lighting, SSR, aerial perspective, the Forward2D particle composite
 (a quarter-resolution billboard layer through the sprite blend kernel,
 depth-tested against the scene, upsampled and blended over the lit frame),
 bloom, tonemap and FXAA. Everything runs eagerly on the tensors' device.
+
+The raster routes (`RenderSpec.raster_path`): "tile" (the default) bins each
+pass's triangles per tile and rasters them with `raster3d` (vid = tile·256 +
+entry, slot tables per (tile, entry)); "group" re-groups each pass's triangles
+into dense groups (`compact_triangles`, or the source meshlets with
+`compact_raster=False`), bins the groups per tile and rasters them with
+`raster_groups` (vid = group·256 + slot, slot tables per dense slot, the late
+pass's vids after the early pass's groups).
 
 The JAX graph's device-side branches (`lax.cond` / `lax.switch`) are host
 decisions here, taken the same way. Host reads per frame: one at the top
@@ -28,8 +36,7 @@ the camera's intrinsics and collides on swapped transforms, as in the JAX
 package (`tests/test_torch_render3d.py` names both).
 
 Not ported yet, and refused with NotImplementedError: texturing,
-alpha-masked materials, debug views, the group raster path and the non-kernel
-raster path.
+alpha-masked materials, debug views and the non-kernel raster path.
 """
 
 from __future__ import annotations
@@ -41,9 +48,16 @@ from typing import Any, Callable
 import torch
 
 from ..ops import hiz as hiz_ops
-from ..ops import raster3d
+from ..ops import raster3d, raster_groups
 from ..ops.cull import cull_instances, cull_meshlets, expand_meshlet_instances
-from ..ops.setup3d import bin_triangles_per_tile, passthrough_bounds, passthrough_groups, setup_triangles
+from ..ops.setup3d import (
+    bin_meshlets_to_tiles,
+    bin_triangles_per_tile,
+    compact_triangles,
+    passthrough_bounds,
+    passthrough_groups,
+    setup_triangles,
+)
 from ..utils import math3d
 from ..utils.imgops import point_downsample as _pds
 from ..utils.imgops import resize_linear
@@ -87,10 +101,10 @@ class RenderSpec:
     max_visible_meshlets: int = 4096
     meshlets_per_tile: int = 64
     use_pallas: bool = True      # the kernel raster; False (the JAX decode path) is not ported
-    tile: int = 64
-    raster_group: int = 64
-    compact_raster: bool = True  # group path only
-    raster_path: str = "tile"    # "group" is not ported
+    tile: int = 64               # the tile route takes 64; the group route 32 or 64
+    raster_group: int = 64       # slots per dense group (group route, compact_raster; ≤ 128)
+    compact_raster: bool = True  # group route: compact_triangles, else the source meshlets as groups
+    raster_path: str = "tile"    # "tile": per-tile triangle lists (raster3d); "group": group lists (raster_groups)
     tris_per_tile: int = 256     # entries per tile (multiple of 64, ≤ 256)
     bin_groups_per_tile: int = 64
     tris_per_tile_masked: int = 128
@@ -174,7 +188,7 @@ class RendererInstance:
         for on, what in (
             (textured, "texturing"),
             (alpha_masked, "alpha-masked materials"), (bool(config.debug_view), "debug views"),
-            (spec.raster_path != "tile", f"raster_path={spec.raster_path!r}"),
+            (spec.raster_path not in ("tile", "group"), f"raster_path={spec.raster_path!r}"),
             (not spec.use_pallas, "the decode raster path (use_pallas=False)"),
         ):
             if on:
@@ -256,22 +270,44 @@ class RendererInstance:
             gscene, world, vm_inst, vm_ml, vm_valid, camera.view_projection, w, h,
             backface_enabled=config.culling_triangle,
         )
-        n_slots_r = spec.tris_per_tile
+        # the slot tables' stride: per (tile, entry) on the tile route, per dense group slot on the group route
+        use_tile_raster = spec.raster_path == "tile"
+        if use_tile_raster:
+            n_slots_r = spec.tris_per_tile
+        else:
+            n_slots_r = spec.raster_group if spec.compact_raster else setup["tri_valid"].shape[1]
         mat_idx = gscene.inst_material[vm_inst.long()].long()
         consts_m = torch.cat(
             [materials.albedo_color[:, :3], materials.metallic_factor[:, None],
              materials.roughness_factor[:, None], materials.emissive_color],
             dim=1,
         )  # (M, 8) material-indexed constants
-        # the per-slot row matrix is built once from the full visible set and
-        # shared by both passes (a pass's entries only reference its valid slots)
-        dense_full = passthrough_groups(setup, setup["tri_valid"], mat_idx, vm_inst)
-        comb = raster3d.build_tile_comb(dense_full, consts_m[dense_full["slot_material"].long()])
+        if use_tile_raster:
+            # the per-slot row matrix is built once from the full visible set and
+            # shared by both passes (a pass's entries only reference its valid slots)
+            dense_full = passthrough_groups(setup, setup["tri_valid"], mat_idx, vm_inst)
+            comb = raster3d.build_tile_comb(dense_full, consts_m[dense_full["slot_material"].long()])
 
         def raster_pass(vis_mask: Tensor, k2: int | None = None, k_groups: int | None = None):
-            """One G-buffer raster pass → (depth, vid, gb, bin_overflow,
-            slot tables stride-padded to the global entry stride)."""
+            """One G-buffer raster pass → (depth, vid, gb, bin_overflow, slot
+            tables): on the tile route stride-padded to the global entry
+            stride; on the group route per dense slot of the pass's groups,
+            whose capacities `k2` and `k_groups` do not touch."""
             tri_mask = setup["tri_valid"] & vis_mask[:, None]
+            if not use_tile_raster:
+                if spec.compact_raster:
+                    dense = compact_triangles(setup, tri_mask, mat_idx, vm_inst, group=spec.raster_group,
+                                              width=float(w), height=float(h))
+                else:
+                    dense = passthrough_groups(setup, tri_mask, mat_idx, vm_inst)
+                rows = raster3d.build_tile_comb(dense, consts_m[dense["slot_material"].long()])
+                near_eo = torch.flip(torch.cummax(torch.flip(dense["ml_near"], [0]), 0).values, [0])
+                tile_list, ov = bin_meshlets_to_tiles(dense, w, h, spec.tile, spec.meshlets_per_tile)
+                d, v, gb = raster_groups.rasterize_gbuffer_groups(rows, tile_list, w, h, n_slots_r, ml_near=near_eo,
+                                                                  tile=spec.tile)
+                tables = tuple(dense[k].reshape(-1).to(torch.int32)
+                               for k in ("slot_material", "slot_instance", "packed_id"))
+                return d, v, gb, ov, tables
             k2_p = k2 or spec.tris_per_tile
             bounds = passthrough_bounds(setup, tri_mask)
             entries, cnts, ov = bin_triangles_per_tile(bounds, w, h, spec.tile, k_groups or spec.bin_groups_per_tile, k2_p)
