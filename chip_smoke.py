@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels (the compact rigid-body kernel, the tile
 G-buffer raster, the HiZ pyramid, the dense rigid-body kernel, the
-depth-only shadow raster, the sprite blend, the banded rigid-body kernel and
-the group-hit G-buffer raster) from the sources in this checkout and drives
+depth-only shadow raster, the sprite blend, the banded rigid-body kernel,
+the group-hit G-buffer raster and the Hopper probes) from the sources in this
+checkout and drives
 the port's paths on the card: the fused
 simulate-and-render 3D frame of the config-5 scene at its full size
 (1920×1080, 150 meshlet objects, 255 falling boxes, capacity 512), without
@@ -13,8 +14,9 @@ the atmosphere, shadows, GTAO and SSR (phase 3) and whole (phase 9), the
 headless dense runner on the flagship (1022 boxes, capacity 1024), the
 default runner on `entry()`'s scene (255 boxes, capacity 512), the 2D runner
 on config 2 (phase 10), the 3D frame with particles on config 3 (phase
-11), the physics bench cells (phase 12) and the config-5 frame through the
-group raster route (phase 13), with bodies made from a fixed seed. Every
+11), the physics bench cells (phase 12), the config-5 frame through the
+group raster route (phase 13) and the Hopper probes (phase 14), with bodies
+made from a fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -127,7 +129,15 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    and 64, `ml_near` given and not, `tile_base` ≠ 0, R = 32, 64 and 128, empty
    tiles and full lists, depths tied across groups and slots, walks ended
    early; and one frame rendered with the kernels and with the plain versions
-   from a shared state and carry (identical).
+   from a shared state and carry (identical);
+14. the Hopper probes (`oxylus_tpu_torch/probes`, kernel table row 9): every
+   launch count set to 0, then `probes.run_all` (what `python -m
+   oxylus_tpu_torch.probes` runs: the four TPU probe scripts' cases, each
+   checked and timed) with every probe kernel launched; then each kernel held
+   against its plain version on the scripts' and seeded inputs (exact; the
+   bf16 and float32 products within their sum-order bounds), timed as a CUDA
+   graph of 200 calls beside its plain version, its bound and, where one
+   PyTorch call computes the same function, that call's time.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -142,6 +152,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -163,8 +174,9 @@ BIN_DROP_GATE = 0.05  # share of a frame's binned pairs the binning capacity may
 WIDTH, HEIGHT = 1920, 1080
 MAIN_WARMUP, MAIN_FRAMES, CMP_FRAMES = 2, 60, 4
 FIELDS = ("pos", "linvel", "angvel", "quat")
-# the card's published peaks (H100 SXM data sheet): HBM bytes/s, float32 outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, float32 outside the tensor cores,
+# dense bf16 on the tensor cores
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # Operations the raster's function needs, counted on this run's data. Per
 # real entry (one a tile holds, in a round the tile ran) and tile pixel: 5
 # planes × (4 mul + 5 add) of the hi/lo evaluation, then the cover test
@@ -294,10 +306,11 @@ def capture(mod, name: str, into: list, keep=lambda args: args, result: bool = F
         setattr(mod, name, fn)
 
 
-def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_F32) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of bytes over the
-    memory rate and float32 operations over the SMs' rate, and which one it is."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    memory rate and operations over their peak rate (float32 on the SMs unless
+    given), and which one it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -423,6 +436,243 @@ def seeded_group_inputs(seed, tile, n_slots, with_near, band, dev):
     cnt = (tl >= 0).sum(1)
     check(int(cnt.max()) == 64 and bool((cnt == 0).any()), f"seeded group inputs {seed}: no full or empty list")
     return rows, tl, near, WIDTH, h, n_slots, tile, base
+
+
+PROBE_REPS = 200  # timed launches per probe kernel (after one warm-up)
+
+
+def probe_phase(dev, card: str, other_mods) -> list[dict]:
+    """Phase 14: the Hopper probes (kernel table row 9). Drives
+    `probes.run_all` (what `python -m oxylus_tpu_torch.probes` runs) with every
+    launch count set to 0 just before, then holds each probe kernel against its
+    plain version on the scripts' and seeded inputs, times both with CUDA
+    events, and returns the `kernels` rows."""
+    from oxylus_tpu_torch import probes
+    from oxylus_tpu_torch.probes import dot_rhs_t, dynslice, mosaic_ops
+    from oxylus_tpu_torch.probes import roll as proll
+
+    probe_mods = probes.modules()
+    for mod in tuple(other_mods) + tuple(probe_mods):
+        mod.LAUNCHES = 0
+    mosaic_ops.KERNEL_LAUNCHES.clear()
+    proll.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    lines = probes.run_all(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in lines:
+        print(f"[14] {probes.format_line(r)}", flush=True)
+    counts = {mod.__name__: mod.LAUNCHES for mod in probe_mods}
+    mosaic_counts, roll_counts = dict(mosaic_ops.KERNEL_LAUNCHES), dict(proll.KERNEL_LAUNCHES)
+    kernel_counts = {**{f"mosaic_ops.{k}": v for k, v in mosaic_counts.items()},
+                     **{f"roll.{k}": v for k, v in roll_counts.items()}}
+    print(f"[14] probes.run_all: {len(lines)} probes in {wall:.2f} s ({card}); launches {counts}; by kernel "
+          f"{kernel_counts}", flush=True)
+    check(len(lines) == 26, f"run_all gave {len(lines)} probe lines, not 26")
+    for name, n in counts.items():
+        check(n > 0, f"the probe run never launched a kernel of {name}")
+    for kernel in mosaic_ops.OPS:
+        check(mosaic_counts.get(kernel, 0) > 0, f"the probe run never launched mosaic_ops' {kernel} kernel")
+    roll_kernels = ("roll_chain", "roll_chain_smem", "vector_chain", "matmul_f32", "matmul_bf16", "argmax_extract",
+                    "dynamic_trip")
+    for kernel in roll_kernels:
+        check(roll_counts.get(kernel, 0) > 0, f"the probe run never launched roll's {kernel} kernel")
+    for mod in other_mods:
+        check(mod.LAUNCHES == 0, f"the probe run launched {mod.__name__}")
+
+    def diff(got, want) -> float:
+        """Max |got - want| over elements; NaN must meet NaN and inf the same inf."""
+        got, want = got.float(), want.float()
+        nan_ok = bool((torch.isnan(got) == torch.isnan(want)).all())
+        inf_ok = bool(((got == want) | ~torch.isinf(want)).all())
+        check(nan_ok and inf_ok, "NaN or inf positions differ")
+        fin = torch.isfinite(want)
+        return (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+
+    def exact(label, got, want) -> float:
+        err = diff(got, want)
+        print(f"[14] {label}: max abs err {err}", flush=True)
+        check(err == 0.0, f"{label}: kernel != plain")
+        return err
+
+    def within(label, got, want, tol) -> float:
+        err = diff(got, want)
+        worst = ((got.double() - want.double()).abs() / tol).max().item()
+        print(f"[14] {label}: max abs err {err:.3g}, {worst:.3g} of its sum-order bound", flush=True)
+        check(worst <= 1.0, f"{label}: kernel differs from plain past the sum-order bound")
+        return err
+
+    def timed(label, kernel_fn, plain_fn, n_bytes, n_ops, peak=PEAK_F32, library_fn=None, plain_reps=5):
+        """Kernel and library call: device time per call from a CUDA graph of
+        PROBE_REPS calls (`probes.time_us`; a single small launch called from
+        Python waits on the host, whose time per call is printed beside it);
+        the plain version (many small launches) from the host, by CUDA events."""
+        us, host_us = probes.time_us(kernel_fn, dev, PROBE_REPS)
+        plain = cuda_ms(plain_fn, plain_reps)
+        lib = probes.time_us(library_fn, dev, PROBE_REPS)[0] * 1e-3 if library_fn is not None else None
+        bd = bound(n_bytes, n_ops, peak)
+        print(f"[14] {label}: kernel {us * 1e-3:.6f} ms a call in a CUDA graph ({host_us * 1e-3:.6f} ms called one "
+              f"by one from the host), plain {plain:.4f} ms, library {'none' if lib is None else f'{lib:.6f} ms'}, "
+              f"bound {bd[0]:.6f} ms ({bd[1]}: {n_bytes} bytes, {n_ops} operations at {peak / 1e12:g} T/s) ({card})",
+              flush=True)
+        return us * 1e-3, plain, bd, lib
+
+    rows = []
+
+    def row(name, source, replaces, launches, err, t):
+        ms, plain, bd, lib = t
+        rows.append({"name": name, "route": "cuda", "source": f"oxylus_tpu_torch/probes/csrc/{source}",
+                     "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib})
+
+    # -- dynslice: exact on the script's inputs and on seeded offsets in [-40, 300)
+    err = 0.0
+    for label, (x, d) in (("script", dynslice.script_inputs(dev)), ("seed 3", dynslice.seeded_inputs(3, dev)),
+                          ("seed 4", dynslice.seeded_inputs(4, dev))):
+        err = max(err, exact(f"dynslice, {label}", dynslice.dynslice(x, d), dynslice.dynslice_reference(x, d)))
+    x, d = dynslice.script_inputs(dev)
+    t = timed("dynslice (2, 1024)", lambda: dynslice.dynslice(x, d), lambda: dynslice.dynslice_reference(x, d),
+              x.numel() * 4 + d.numel() * 4 + x.numel() * 4, 0)
+    row("probe_dynslice", "dynslice.cu", "scripts/probe_dynslice.py:28", counts[dynslice.__name__], err, t)
+
+    # -- dot_rhs_t: within the sum-order bound on the script's sparse 0/1 m and on dense seeded m
+    err = 0.0
+    for label, (v, m) in (("script", dot_rhs_t.script_inputs(dev)), ("dense seed 7", dot_rhs_t.seeded_inputs(7, dev))):
+        got = dot_rhs_t.dot_rhs_t(v, m)
+        err = max(err, within(f"dot_rhs_t, {label}", got, dot_rhs_t.dot_rhs_t_reference(v, m),
+                              dot_rhs_t.sum_order_bound(v, m)))
+        script_err = dot_rhs_t.script_error(v, m, got)
+        print(f"[14] dot_rhs_t, {label}: the script's check, out[0] + out[1] vs vcat·mᵀ, relative {script_err:.3g}")
+        check(script_err < dot_rhs_t.SCRIPT_TOL, f"dot_rhs_t, {label}: script check {script_err}")
+    v, m = dot_rhs_t.script_inputs(dev)
+    vals = dot_rhs_t.split_rows(v)
+    mt = m.t()
+    n_ops = 2 * dot_rhs_t.N2 * m.shape[0] * dot_rhs_t.K
+    t = timed("dot_rhs_t (12, 1024)·(384, 1024)ᵀ", lambda: dot_rhs_t.dot_rhs_t(v, m),
+              lambda: dot_rhs_t.dot_rhs_t_reference(v, m), dot_rhs_t.K * 4 + m.numel() * 2 + 12 * m.shape[0] * 4,
+              n_ops, PEAK_BF16, library_fn=lambda: torch.matmul(vals, mt))
+    row("probe_dot_rhs_t", "dot_rhs_t.cu", "scripts/probe_dot_rhs_t.py:21", counts[dot_rhs_t.__name__], err, t)
+
+    # -- mosaic ops: every script and seeded case exact
+    errs = collections.defaultdict(float)
+    for name, kernel, args in mosaic_ops.script_cases(dev) + mosaic_ops.seeded_cases(41, dev):
+        errs[kernel] = max(errs[kernel], exact(f"mosaic_ops {name}", mosaic_ops.run_case(kernel, args),
+                                               mosaic_ops.plain_case(kernel, args)))
+    cases = {}
+    for name, kernel, args in mosaic_ops.script_cases(dev):
+        cases.setdefault(kernel, args)
+    x = cases["scan"][0]
+    n_el = x.numel()
+    idx_l, idx_r = cases["take_lanes"][1].long(), cases["take_rows"][1].long()
+    xb = cases["bf16_mul_add"][0]
+    log_n = math.log2(x.shape[1])
+    library = {
+        "take_lanes": lambda: torch.take_along_dim(x, idx_l, 1),
+        "take_rows": lambda: torch.take_along_dim(x, idx_r, 0),
+        "scan": lambda: torch.cumsum(x, 1),
+        "sort": lambda: torch.sort(x, 1),
+        "argmax": lambda: torch.argmax(x, 1, keepdim=True),
+        "roll_lanes": lambda: torch.roll(x, 5, 1),
+        "bf16_mul_add": lambda: torch.addcmul(xb, xb, xb),  # one call; it rounds x + x·x once
+    }
+    sizes = {  # bytes moved, operations
+        "take_lanes": (n_el * 12, 0), "take_rows": (n_el * 12, 0), "scan": (n_el * 8, n_el),
+        "sort": (n_el * 8, int(n_el * log_n)), "argmax": (n_el * 4 + x.shape[0] * 4, n_el),
+        "roll_lanes": (n_el * 8, 0), "bf16_mul_add": (n_el * 4, 2 * n_el),
+    }
+    lines_at = {"take_lanes": 37, "scan": 54, "sort": 70, "argmax": 78, "roll_lanes": 86, "take_rows": 95,
+                "bf16_mul_add": 104}
+    for kernel, args in cases.items():
+        t = timed(f"mosaic_ops {kernel} (128, 384)", lambda: mosaic_ops.run_case(kernel, args),
+                  lambda: mosaic_ops.plain_case(kernel, args), *sizes[kernel], library_fn=library[kernel])
+        row(f"probe_{kernel}", "mosaic_ops.cu", f"scripts/probe_mosaic_ops.py:{lines_at[kernel]}",
+            mosaic_counts.get(kernel, 0), errs[kernel], t)
+
+    # -- roll: rotates, chains, extraction and trip exact; products exact on all ones, within the bound on seeded
+    errs = collections.defaultdict(float)
+    xs = proll.script_x(dev)
+    xr = proll.seeded_x(51, (37, 128), dev)
+    for label, xv in (("script", xs), ("seed 51, 37 rows", xr), ("seed 51 x3 rounded, ties", torch.round(xr * 3))):
+        for via, key in (("shuffle", "roll_chain"), ("smem", "roll_chain_smem")):
+            for shift in (5, -133, 517):
+                errs[key] = max(errs[key], exact(
+                    f"dynamic roll {shift} via {via}, {label}", proll.dynamic_roll(xv, proll.scalar(shift, dev), via),
+                    proll.roll_chain_reference(xv, 1, shift, accumulate=False)))
+            errs[key] = max(errs[key], exact(
+                f"static roll x{proll.N_INNER} via {via}, {label}", proll.roll_chain(xv, proll.N_INNER, via=via),
+                proll.roll_chain_reference(xv, proll.N_INNER, 1)))
+            errs[key] = max(errs[key], exact(
+                f"dynamic roll x{proll.N_INNER} via {via}, {label}",
+                proll.dynamic_roll_chain(xv, proll.N_INNER, proll.scalar(proll.DYN_BASE, dev), via=via),
+                proll.roll_chain_reference(xv, proll.N_INNER, proll.DYN_BASE, proll.DYN_STEP)))
+        for n_iter in (1, 2, proll.N_INNER):
+            errs["vector_chain"] = max(errs["vector_chain"], exact(
+                f"vector chain x{n_iter}, {label}", proll.vector_chain(xv, n_iter),
+                proll.vector_chain_reference(xv, n_iter)))
+        errs["argmax_extract"] = max(errs["argmax_extract"], exact(
+            f"argmax extract, {label}", proll.argmax_extract(xv), proll.argmax_extract_reference(xv, 16)))
+        errs["dynamic_trip"] = max(errs["dynamic_trip"], exact(
+            f"dynamic trip, {label}", proll.dynamic_trip(xv, proll.scalar(proll.DYN_TRIP, dev)),
+            proll.dynamic_trip_reference(xv, proll.DYN_TRIP)))
+    xb = proll.script_xb(dev)
+    errs["vector_chain"] = max(errs["vector_chain"], exact(
+        "vector chain x200 (128, 384)", proll.vector_chain(xb, proll.VPU_BIG_ITERS),
+        proll.vector_chain_reference(xb, proll.VPU_BIG_ITERS)))
+    for m_, k_, n_, dtype in proll.MATMULS + ((96, 80, 48, torch.float32), (48, 64, 80, torch.bfloat16)):
+        kname = "matmul_f32" if dtype == torch.float32 else "matmul_bf16"
+        if (m_, k_, n_, dtype) in proll.MATMULS:
+            a, b = torch.ones(m_, k_, dtype=dtype, device=dev), torch.ones(k_, n_, dtype=dtype, device=dev)
+            got = proll.matmul_acc(a, b, proll.REPS_M)
+            check(bool((got == proll.REPS_M * k_).all()), f"{kname} {m_}x{k_}x{n_}: all-ones product != 500·k")
+            errs[kname] = max(errs[kname], exact(f"{kname} {m_}x{k_}x{n_} all ones x{proll.REPS_M}", got,
+                                                 proll.matmul_reference(a, b, proll.REPS_M)))
+        a, b = proll.seeded_matrices(m_ + k_ + n_, m_, k_, n_, dtype, dev)
+        errs[kname] = max(errs[kname], within(f"{kname} {m_}x{k_}x{n_} seeded x1", proll.matmul_acc(a, b, 1),
+                                              proll.matmul_reference(a, b, 1), proll.product_bound(a, b, 1)))
+    n_el = xs.numel()
+    for via, key in (("shuffle", "roll_chain"), ("smem", "roll_chain_smem")):
+        t = timed(f"{key} static x{proll.N_INNER} (8, 128)", lambda: proll.roll_chain(xs, proll.N_INNER, via=via),
+                  lambda: proll.roll_chain_reference(xs, proll.N_INNER, 1), 2 * n_el * 4, proll.N_INNER * n_el,
+                  plain_reps=2)
+        print(f"[14] {key}: {t[0] * 1e6 / proll.N_INNER:.3f} ns per rotate-and-add of the (8, 128) block ({card})",
+              flush=True)
+        row(f"probe_{key}", "roll.cu", "scripts/probe_roll.py:56", roll_counts.get(key, 0), errs[key], t)
+    t = timed(f"vector_chain x{proll.N_INNER} (8, 128)", lambda: proll.vector_chain(xs, proll.N_INNER),
+              lambda: proll.vector_chain_reference(xs, proll.N_INNER), 2 * n_el * 4, 8 * proll.N_INNER * n_el,
+              plain_reps=2)
+    row("probe_vector_chain", "roll.cu", "scripts/probe_roll.py:76", roll_counts.get("vector_chain", 0),
+        errs["vector_chain"], t)
+    t_big = timed(f"vector_chain x{proll.VPU_BIG_ITERS} (128, 384)",
+                  lambda: proll.vector_chain(xb, proll.VPU_BIG_ITERS),
+                  lambda: proll.vector_chain_reference(xb, proll.VPU_BIG_ITERS), 2 * xb.numel() * 4,
+                  8 * proll.VPU_BIG_ITERS * xb.numel(), plain_reps=2)
+    print(f"[14] vector chain rates: (8, 128) x{proll.N_INNER} {8 * proll.N_INNER * n_el / t[0] / 1e9:.4f} TFLOP/s, "
+          f"(128, 384) x{proll.VPU_BIG_ITERS} {8 * proll.VPU_BIG_ITERS * xb.numel() / t_big[0] / 1e9:.4f} TFLOP/s "
+          f"of 67 ({card})", flush=True)
+    m_, k_, n_ = 1024, 1024, 128
+    for dtype, kname, line in ((torch.float32, "matmul_f32", 109), (torch.bfloat16, "matmul_bf16", 109)):
+        a, b = torch.ones(m_, k_, dtype=dtype, device=dev), torch.ones(k_, n_, dtype=dtype, device=dev)
+        flops = 2 * m_ * k_ * n_ * proll.REPS_M
+        elt = 2 if dtype == torch.bfloat16 else 4
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        t = timed(f"{kname} {m_}x{k_}x{n_} x{proll.REPS_M}", lambda: proll.matmul_acc(a, b, proll.REPS_M),
+                  lambda: proll.matmul_reference(a, b, proll.REPS_M), (m_ * k_ + k_ * n_) * elt + m_ * n_ * 4, flops,
+                  peak, plain_reps=2)
+        one = cuda_ms(lambda: torch.matmul(a, b), PROBE_REPS)
+        print(f"[14] {kname}: {flops / t[0] / 1e9:.3f} TFLOP/s of {peak / 1e12:g}; torch.matmul of one product "
+              f"{one:.5f} ms = {2 * m_ * k_ * n_ / one / 1e9:.3f} TFLOP/s, the yardstick, not used by the port ({card})",
+              flush=True)
+        row(f"probe_{kname}", "roll.cu", f"scripts/probe_roll.py:{line}", roll_counts.get(kname, 0), errs[kname], t)
+    t = timed("argmax_extract 16 rounds (8, 128)", lambda: proll.argmax_extract(xs),
+              lambda: proll.argmax_extract_reference(xs, 16), 2 * n_el * 4, 16 * n_el)
+    row("probe_argmax_extract", "roll.cu", "scripts/probe_roll.py:120", roll_counts.get("argmax_extract", 0),
+        errs["argmax_extract"], t)
+    trip = proll.scalar(proll.DYN_TRIP, dev)
+    t = timed(f"dynamic_trip {proll.DYN_TRIP} (8, 128)", lambda: proll.dynamic_trip(xs, trip),
+              lambda: proll.dynamic_trip_reference(xs, proll.DYN_TRIP), 2 * n_el * 4 + 4, proll.DYN_TRIP * n_el)
+    row("probe_dynamic_trip", "roll.cu", "scripts/probe_roll.py:139", roll_counts.get("dynamic_trip", 0),
+        errs["dynamic_trip"], t)
+    return rows
 
 
 def main() -> int:
@@ -1467,6 +1717,8 @@ def main() -> int:
     check(rendered > 0, "the shared-carry frame launched no group raster")
     check(torch.equal(img_k, img_p), "group route: kernel and plain frames differ")
 
+    # ---- 14. the Hopper probes (kernel table row 9) -----------------------------
+    probe_rows = probe_phase(dev, card, every_mod)
 
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1492,7 +1744,7 @@ def main() -> int:
             "oxylus_tpu/physics/megakernel_banded.py:80", mb, banded_err, banded_ms, banded_plain_ms, banded_bound),
         row("raster_groups", "oxylus_tpu_torch/ops/csrc/raster_groups.cu", "oxylus_tpu/ops/raster3d.py:355",
             raster_groups, group_err, group_rows[0][1], group_rows[0][2], group_rows[0][3]),
-    ]}))
+    ] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `physics/csrc/` and `ops/csrc/` are compiled at first use
+The sources under `physics/csrc/`, `ops/csrc/` and `probes/csrc/` are compiled at first use
 with `nvcc` (`-gencode arch=compute_90a,code=sm_90a`), one `nvcc` process per
 source, all started together, then linked into one shared library with a plain
 C interface in `oxylus_tpu_torch/build/` (ignored by git) and loaded with
@@ -19,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
-CSRC_DIRS = (PKG_DIR / "physics" / "csrc", PKG_DIR / "ops" / "csrc")
+CSRC_DIRS = (PKG_DIR / "physics" / "csrc", PKG_DIR / "ops" / "csrc", PKG_DIR / "probes" / "csrc")
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -115,5 +115,26 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.blend2d.restype = ci
         lib.raster_groups.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.raster_groups.restype = ci
+        # the Hopper probes (probes/csrc)
+        for name, args in (
+            ("probe_dynslice", [vp, vp, vp]),
+            ("probe_dot_rhs_t", [vp, ci, vp, ci, vp]),
+            ("probe_take_lanes", [vp, vp, vp, ci, ci, ci]),
+            ("probe_take_rows", [vp, vp, vp, ci, ci, ci]),
+            ("probe_scan", [vp, vp, ci, ci, ci, ci]),
+            ("probe_sort_rows", [vp, vp, ci, ci]),
+            ("probe_argmax_rows", [vp, vp, ci, ci]),
+            ("probe_roll_lanes", [vp, vp, ci, ci, ci]),
+            ("probe_bf16_mul_add", [vp, vp, ctypes.c_longlong]),
+            ("probe_roll_chain", [vp, vp, ci, ci, vp, ci, ci, ci, ci]),
+            ("probe_vector_chain", [vp, vp, ci, ci]),
+            ("probe_matmul_f32", [vp, vp, vp, ci, ci, ci, ci]),
+            ("probe_matmul_bf16", [vp, vp, vp, ci, ci, ci, ci]),
+            ("probe_argmax_extract", [vp, vp, ci, ci]),
+            ("probe_dynamic_trip", [vp, vp, ci, vp]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = args + [vp]  # the stream last
+            fn.restype = ci
         _LIB = lib
     return _LIB

@@ -56,6 +56,11 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.frame2d",
     "oxylus_tpu_torch.frame3d",
     "oxylus_tpu_torch.bench",
+    "oxylus_tpu_torch.probes",
+    "oxylus_tpu_torch.probes.dynslice",
+    "oxylus_tpu_torch.probes.dot_rhs_t",
+    "oxylus_tpu_torch.probes.mosaic_ops",
+    "oxylus_tpu_torch.probes.roll",
 ]
 
 PROBE = f"""
@@ -63,7 +68,7 @@ import importlib, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 for name in {SLICE_MODULES!r}:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m == "oxylus_tpu" or m.startswith(("oxylus_tpu.", "jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules if m == "oxylus_tpu" or m.startswith(("oxylus_tpu.", "jax.", "jaxlib", "scripts")))
 assert not bad, bad
 print("ok")
 """
