@@ -26,7 +26,9 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
 1. set-up: a card must be visible; the kernel library is built with nvcc (one
    process per source, in parallel); the meshes are baked;
 2. compact kernel vs plain from the flagship's start state, for 8 and for 60
-   substeps, with the bench's adaptive band and `n_planes=count_hub_planes`;
+   substeps, with the bench's adaptive band and `n_planes=count_hub_planes`
+   (here and in every compact check: the per-body dropped-pair row exactly
+   equal, the state within its bound);
 3. slice 2's main path: `SceneRunner(**build_frame5_scene(1920, 1080)[1])`
    with the atmosphere, shadows, GTAO and SSR off runs 2
    warm-up frames, then 60 frames with every kernel's launch count set to 0
@@ -73,9 +75,11 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    every frame and no box centre fall below y = -1 m. Then the depth raster
    vs plain, exactly equal (depth bits and vid), on the inputs captured in the
    first warm-up frame (no shadow cache: all six levels at the full tier) and
-   in the first timed frame that renders a level at the small tier; the six
-   full-tier calls timed with CUDA events against their plain versions and
-   their bound; and one frame rendered with the kernels and with the plain
+   in the first timed frame that renders a level at the small tier; each of
+   those calls timed with CUDA events against its plain version, with the
+   kernel's grid (sub-tile, entry chunk, CTAs) and two bounds (on the covered
+   (entry, slot, pixel) triples, and on every real slot at every pixel of
+   each live pair); and one frame rendered with the kernels and with the plain
    versions from a shared state and carry (the carry one frame old, so shadow
    pages re-render), which must be identical;
 10. config 2, `SceneRunner(**build_frame2d_scene(1920, 1080)[1])` (512
@@ -206,10 +210,12 @@ COMPACT_OPS_PAIR = 330
 DENSE_OPS_TEST = 16
 DENSE_OPS_PAIR = {"round_round": 71, "box_round": 78, "round_box": 81, "box_box": 599}
 DENSE_OPS_POINT, DENSE_OPS_POINT_SWEEP = 44, 93
-# Depth raster: per live (tile, entry) pair, per real triangle of its meshlet
-# and tile pixel, five planes × (4 mul + 5 add) of the hi/lo evaluation, the
-# 6 compares of the cover test and the first-max compare; per pair and pixel
-# the fold into the tile (compare, select)
+# Depth raster: per evaluated (entry, slot, pixel), five planes × (4 mul + 5
+# add) of the hi/lo evaluation, the 6 compares of the cover test and the
+# first-max compare; per pair and pixel the fold into the tile (compare,
+# select). The bound counts them at the covered (entry, slot, pixel) triples,
+# the least an exact design must evaluate; the first port's count, every real
+# slot at every pixel of each live pair with its fold, is printed beside it
 DEPTH_OPS_TRI_PIXEL, DEPTH_OPS_PAIR_PIXEL = 52, 2
 FULL_TIER, SMALL_TIER = 2048, 768  # the shadow levels' capacities (`render_shadow_clipmaps_cached`)
 # Sprite blend: float operations per live (tile, entry) pair and tile pixel:
@@ -710,17 +716,23 @@ def main() -> int:
 
     def kernel_vs_plain(label, ps, params, tol, **kw):
         """One wrapper call with the kernel and one routed to the plain version,
-        on the same card state; checks every output and returns the kernel's."""
-        got, gd = mc.megakernel_substeps_compact(ps, params, DT, with_overflow=True, **kw)
-        with plain_on_card(mc):
+        on the same card state; checks every output (the per-body dropped-pair
+        row `ovf` exactly) and returns the kernel's."""
+        ovf = []  # the raw output's row 15, per body in slab-rank order: kernel, then plain
+        with capture(mc, "run_compact", ovf, keep=lambda out: out[15].clone(), result=True):
+            got, gd = mc.megakernel_substeps_compact(ps, params, DT, with_overflow=True, **kw)
+        with plain_on_card(mc), capture(mc, "run_compact", ovf, keep=lambda out: out[15].clone(), result=True):
             want, wd = mc.megakernel_substeps_compact(ps, params, DT, with_overflow=True, **kw)
         err = state_err(got, want)
         rmse = (got.pos - want.pos).pow(2).sum(1).mean().sqrt().item()
         timer_err = (got.sleep_timer - want.sleep_timer).abs().max().item()
+        ovf_diff = int((ovf[0] != ovf[1]).sum())
         print(f"[{label}] kernel vs plain max abs err {err}, pos RMSE {rmse:.3g} m, "
-              f"sleep-timer err {timer_err:.3g} s, dropped {(gd.item(), wd.item())}", flush=True)
+              f"sleep-timer err {timer_err:.3g} s, dropped {(gd.item(), wd.item())}, ovf rows differ on {ovf_diff} "
+              f"bodies", flush=True)
         check(all(bool(torch.isfinite(getattr(got, k)).all()) for k in FIELDS), f"{label}: kernel output not finite")
         check(gd.item() == wd.item(), f"{label}: dropped counts differ")
+        check(ovf_diff == 0, f"{label}: the per-body dropped-pair rows differ on {ovf_diff} bodies")
         flips = int((got.asleep != want.asleep).sum())
         check(flips == 0, f"{label}: sleep flags differ on {flips} bodies")
         check(timer_err <= TOL_8, f"{label}: sleep timers differ by {timer_err}")
@@ -1148,39 +1160,49 @@ def main() -> int:
     check(len(small_calls) > 0, "no timed frame rendered a shadow level at the small tier")
 
     def depth_vs_plain(label, args):
+        """The kernel vs its plain version, exactly (depth bits, vid); then
+        both timed. Returns the error, the time, the plain version's, the
+        bytes and two operation counts: every real slot at all tile pixels of
+        each live pair (the first port's count), and the covered (entry, slot,
+        pixel) triples alone (the least an exact design evaluates)."""
         got = raster_depth.rasterize_depth(*args)
         want = raster_depth.rasterize_depth_reference(*args)
         torch.cuda.synchronize()
         d_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
         v_diff = int((got[1] != want[1]).sum())
         err = (got[0] - want[0]).abs().max().item()
-        work = raster_depth.live_work(args[0], args[1])
         w, h = args[2], args[3]
+        work = raster_depth.live_work(args[0], args[1], w, h)
         n_bytes = work["meshlet_tris"] * 5 * 3 * 4 + args[1].numel() * 4 + w * h * 8
-        n_ops = work["pair_tris"] * 4096 * DEPTH_OPS_TRI_PIXEL + work["pairs"] * 4096 * DEPTH_OPS_PAIR_PIXEL
-        bd = bound(n_bytes, n_ops)
-        print(f"[{label}] coeff {tuple(args[0].shape)}, lists {tuple(args[1].shape)}, {work}: depth bit mismatches "
-              f"{d_bits}, vid mismatches {v_diff}, hit pixels {int((got[1] >= 0).sum())}; bound {bd[0]:.5f} ms "
-              f"({bd[1]})", flush=True)
-        check(d_bits == 0 and v_diff == 0, f"{label}: depth raster kernel != plain")
-        return err, n_bytes, n_ops
-
-    # the first frame's six levels: timed one by one, summed, bounded on their total work
-    depth_errs, depth_ms, depth_plain_ms, depth_bytes, depth_ops = [], 0.0, 0.0, 0, 0
-    for i, args in enumerate(first_calls):
-        err, n_bytes, n_ops = depth_vs_plain(f"9: depth raster, first frame, level {i}", args)
+        ops_all = work["pair_tris"] * 4096 * DEPTH_OPS_TRI_PIXEL + work["pairs"] * 4096 * DEPTH_OPS_PAIR_PIXEL
+        ops_covered = work["covered"] * DEPTH_OPS_TRI_PIXEL
+        bd_all, bd = bound(n_bytes, ops_all), bound(n_bytes, ops_covered)
         ms = cuda_ms(lambda: raster_depth.rasterize_depth(*args), 20)
         plain = cuda_ms(lambda: raster_depth.rasterize_depth_reference(*args), 2)
-        print(f"[9] level {i}: kernel {ms:.4f} ms, plain {plain:.2f} ms ({card})", flush=True)
+        print(f"[{label}] coeff {tuple(args[0].shape)}, lists {tuple(args[1].shape)}, {work}, grid "
+              f"{raster_depth.launch_grid(args[1])}: depth bit mismatches {d_bits}, vid mismatches {v_diff}, hit "
+              f"pixels {int((got[1] >= 0).sum())}; kernel {ms:.4f} ms, plain {plain:.2f} ms; bound on the covered "
+              f"triples {bd[0]:.5f} ms ({bd[1]}), on every real slot at every pixel {bd_all[0]:.5f} ms ({bd_all[1]}) "
+              f"({card})", flush=True)
+        check(d_bits == 0 and v_diff == 0, f"{label}: depth raster kernel != plain")
+        return err, ms, plain, n_bytes, ops_all, ops_covered
+
+    # the first frame's six levels and the small-tier calls: each checked,
+    # timed and bounded; the six levels summed and bounded on their total work
+    depth_errs, depth_ms, depth_plain_ms, depth_bytes, depth_ops_all, depth_ops = [], 0.0, 0.0, 0, 0, 0
+    for i, args in enumerate(first_calls):
+        err, ms, plain, n_bytes, ops_all, ops_covered = depth_vs_plain(f"9: depth raster, first frame, level {i}", args)
         depth_errs.append(err)
         depth_ms, depth_plain_ms = depth_ms + ms, depth_plain_ms + plain
-        depth_bytes, depth_ops = depth_bytes + n_bytes, depth_ops + n_ops
+        depth_bytes, depth_ops_all, depth_ops = depth_bytes + n_bytes, depth_ops_all + ops_all, depth_ops + ops_covered
     for i, args in enumerate(small_calls):
         depth_errs.append(depth_vs_plain(f"9: depth raster, small tier, call {i}", args)[0])
     depth_err = max(depth_errs)
     depth_bound = bound(depth_bytes, depth_ops)
+    depth_bound_all = bound(depth_bytes, depth_ops_all)
     print(f"[9] depth raster, the first frame's six levels: kernel {depth_ms:.4f} ms, plain {depth_plain_ms:.2f} ms, "
-          f"bound {depth_bound[0]:.5f} ms ({depth_bound[1]}) ({card})", flush=True)
+          f"bound on the covered triples {depth_bound[0]:.5f} ms ({depth_bound[1]}), on every real slot at every "
+          f"pixel {depth_bound_all[0]:.5f} ms ({depth_bound_all[1]}) ({card})", flush=True)
 
     # one frame with the kernels and with the plain versions, from a shared
     # state and a carry one frame old (the boxes moved: shadow pages re-render)

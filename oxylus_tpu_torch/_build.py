@@ -109,7 +109,7 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.raster_tiles.restype = ci
         lib.hiz_build.argtypes = [vp, ci, ci, ci, vp, vp]
         lib.hiz_build.restype = ci
-        lib.raster_depth.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.raster_depth.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.raster_depth.restype = ci
         lib.blend2d.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.blend2d.restype = ci

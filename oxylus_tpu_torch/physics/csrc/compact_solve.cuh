@@ -267,6 +267,8 @@ extern "C" const char* compact_error_string(int err) {
     cudaError_t e_ = cudaGetLastError();                                       \
     if (e_ != cudaSuccess) return (int)e_;                                     \
   } while (0)
+// a warp per body: n bodies take 32 n threads
+#define LAUNCH_WARPS(kernel, n, ...) LAUNCH(kernel, 32 * (n), __VA_ARGS__)
 
 extern "C" int compact_substeps(const float* scalars, const float* rows, float* out, void* workspace, int b,
                                 int R, int band, int n_planes, int n_substeps, int iterations, float warm,
@@ -292,12 +294,12 @@ extern "C" int compact_substeps(const float* scalars, const float* rows, float* 
     LAUNCH(k_pre, b, scalars, rows, w, d, sleep);
     const bool rebuild = step % geom_every == 0;
     if (rebuild) {
-      LAUNCH(k_discover, b, rows, w, d);
-      LAUNCH(k_remap, b, w, d);
+      LAUNCH_WARPS(k_discover, b, rows, w, d);
+      LAUNCH_WARPS(k_remap, b, w, d);
       // the new partner deltas and remapped caches become current
       int* t = w.d_cur; w.d_cur = w.d_new; w.d_new = t;
       __nv_bfloat16* l = w.lam_cur; w.lam_cur = w.lam_next; w.lam_next = l;
-      LAUNCH(k_reverse, b, w, d);
+      LAUNCH_WARPS(k_reverse, b, w, d);
       LAUNCH(k_sat, nrb, scalars, rows, w, d);
     } else {
       LAUNCH(k_refresh, nrb, scalars, w, d);

@@ -13,15 +13,22 @@
 //
 // What bounds it on the card: at the flagship size (B=1024, R=16) a substep
 // touches a few MB that stay in L2, so the work is small and latency-bound —
-// ~15 dependent launches per substep, each a few microseconds, dominate. The
-// design keeps it simple and deterministic rather than fast: one thread per
-// body or per (slot, body) pair, field-major (SoA) buffers so neighbouring
-// threads read neighbouring addresses, and the whole substep loop driven from
-// C so a 60-substep call costs one Python call. The col-side impulse scatter
-// uses a reverse index (per body, the (slot, row) pairs that name it) built at
-// each rebuild in a fixed order, so results do not depend on thread timing
-// and no atomics are needed. One persistent launch per call, shared-memory
-// tiles and CUDA graphs are later work.
+// ~15 dependent launches per substep, each a few microseconds, and the
+// rebuild's walks over the band dominate. The design keeps it deterministic:
+// one thread per body or per (slot, body) pair for the solver, field-major
+// (SoA) buffers so neighbouring threads read neighbouring addresses, and the
+// whole substep loop driven from C so a 60-substep call costs one Python call.
+// The rebuild's three walks (k_discover, k_remap, k_reverse) run a warp per
+// body: lanes take consecutive rank deltas (k_reverse: each lane one delta,
+// looping over its R slots; k_remap: one lane per new slot), and
+// __ballot_sync with a __popc prefix keeps the first R partners in ascending
+// delta and the first matching slot per delta, so d_new, rev, revcnt,
+// paircnt and ovf are the same integers as the serial walks give. (One thread
+// per body walked band × R strided reads in k_reverse: half the call's device
+// time.) The col-side impulse scatter uses that reverse index (per body, the
+// (slot, row) pairs that name it, in ascending delta), so results do not
+// depend on thread timing and no atomics are needed. One persistent launch
+// per call, shared-memory tiles and CUDA graphs are later work.
 //
 // Built with -fmad=false: every product and sum rounds on its own, as the plain
 // PyTorch version's separate tensor ops do, so the two differ only where sums
@@ -111,6 +118,12 @@ static size_t carve(Ws* w, char* base, Dims d) {
 #define BODY_THREAD                                     \
   const int a = blockIdx.x * blockDim.x + threadIdx.x; \
   if (a >= d.b) return;
+// one warp per body: launch with LAUNCH_WARPS
+#define BODY_WARP                                                  \
+  const int a = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;      \
+  const int lane = threadIdx.x & 31;                               \
+  if (a >= d.b) return;
+#define FULL_MASK 0xffffffffu
 #define PAIR_THREAD                                       \
   const int idx = blockIdx.x * blockDim.x + threadIdx.x; \
   if (idx >= d.R * d.b) return;                          \
@@ -161,60 +174,84 @@ __global__ void k_pre(const float* __restrict__ sc, const float* __restrict__ ro
 }
 
 // Row body a scans ranks a+1 … min(a+band, B-1), keeps the first R overlapping
-// candidates in ascending delta, counts the rest as dropped.
+// candidates in ascending delta, counts the rest as dropped. A warp per body:
+// lane l tests delta base + l; a ballot's __popc prefix gives each kept
+// candidate its slot.
 __global__ void k_discover(const float* __restrict__ rows, Ws w, Dims d) {
-  BODY_THREAD GATED
+  BODY_WARP GATED
   const int b = d.b;
   const float dyn_a = rows[I_DYN * b + a], act_a = rows[I_ACT * b + a];
   float p[3], e[3];
   for (int c = 0; c < 3; ++c) { p[c] = w.st[c * b + a]; e[c] = w.eh[c * b + a]; }
-  int kept = 0, dropped = 0;
-  for (int dd = 1; dd <= d.band; ++dd) {
-    const int j = a + dd;
-    if (j >= b) break;
-    bool ov = true;
-    for (int c = 0; c < 3; ++c) ov = ov && (fabsf(w.st[c * b + j] - p[c]) <= e[c] + w.eh[c * b + j]);
-    const bool active = ov && ((dyn_a + rows[I_DYN * b + j]) > 0.5f) && ((act_a * rows[I_ACT * b + j]) > 0.5f);
-    if (!active) continue;
-    if (kept < d.R) w.d_new[kept * b + a] = dd;
-    kept < d.R ? ++kept : ++dropped;
+  int found = 0;  // overlapping candidates in the deltas walked so far
+  for (int base = 1; base <= d.band && a + base < b; base += 32) {
+    const int dd = base + lane, j = a + dd;
+    bool active = false;
+    if (dd <= d.band && j < b) {
+      bool ov = true;
+      for (int c = 0; c < 3; ++c) ov = ov && (fabsf(w.st[c * b + j] - p[c]) <= e[c] + w.eh[c * b + j]);
+      active = ov && ((dyn_a + rows[I_DYN * b + j]) > 0.5f) && ((act_a * rows[I_ACT * b + j]) > 0.5f);
+    }
+    const unsigned m = __ballot_sync(FULL_MASK, active);
+    const int slot = found + __popc(m & ((1u << lane) - 1u));
+    if (active && slot < d.R) w.d_new[slot * b + a] = dd;
+    found += __popc(m);
   }
-  for (int r = kept; r < d.R; ++r) w.d_new[r * b + a] = 0;
-  w.paircnt[a] = (float)kept;
-  w.ovf[a] = (float)dropped;
+  const int kept = min(found, d.R);
+  for (int r = kept + lane; r < d.R; r += 32) w.d_new[r * b + a] = 0;
+  if (lane == 0) {
+    w.paircnt[a] = (float)kept;
+    w.ovf[a] = (float)(found - kept);
+  }
 }
 
-// New slot inherits the λ of the old slot with the same partner delta; unmatched slots start cold.
+// New slot inherits the λ of the old slot with the same partner delta (the
+// last such slot, as a serial walk over the old slots finds it); unmatched
+// slots start cold. A warp per body, lane rn the new slot rn.
 __global__ void k_remap(Ws w, Dims d) {
-  BODY_THREAD GATED
+  BODY_WARP GATED
   const int b = d.b;
-  for (int rn = 0; rn < d.R; ++rn) {
-    const int dn = w.d_new[rn * b + a];
-    int src = -1;
-    if (dn > 0)
-      for (int ro = 0; ro < d.R; ++ro)
-        if (w.d_cur[ro * b + a] == dn) src = ro;
+  const int dc = lane < d.R ? w.d_cur[lane * b + a] : 0;
+  const int dn = lane < d.R ? w.d_new[lane * b + a] : 0;
+  int src = -1;
+  for (int ro = 0; ro < d.R; ++ro)
+    if (__shfl_sync(FULL_MASK, dc, ro) == dn && dn > 0) src = ro;
+  if (lane < d.R)
     for (int f = 0; f < N_LAM; ++f)
-      w.lam_next[(f * d.R + rn) * b + a] =
+      w.lam_next[(f * d.R + lane) * b + a] =
           src >= 0 ? w.lam_cur[(f * d.R + src) * b + a] : __float2bfloat16_rn(0.f);
-  }
 }
 
 // Reverse index: the pairs (r, i) whose partner is body j, in ascending delta;
-// also adds the col-side pair count.
+// also adds the col-side pair count. A warp per body: lane l takes delta
+// base + l (row i = j - delta, coalesced over the lanes) and finds the first
+// of i's slots holding that delta, reading REV_BATCH slots at a time so their
+// loads overlap; a ballot's __popc prefix keeps the order.
+#define REV_BATCH 16
 __global__ void k_reverse(Ws w, Dims d) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d.b) return;
-  GATED
-  const int b = d.b;
+  BODY_WARP GATED
+  const int b = d.b, j = a;
   int cnt = 0;
-  for (int dd = 1; dd <= d.band && j - dd >= 0; ++dd) {
-    const int i = j - dd;
-    for (int r = 0; r < d.R; ++r)
-      if (w.d_cur[r * b + i] == dd) { w.rev[cnt * b + j] = r * b + i; ++cnt; break; }
+  for (int base = 1; base <= d.band && j - base >= 0; base += 32) {
+    const int dd = base + lane, i = j - dd;
+    int hit = -1;
+    if (dd <= d.band && i >= 0)
+      for (int r0 = 0; r0 < d.R && hit < 0; r0 += REV_BATCH) {
+        int v[REV_BATCH];
+#pragma unroll
+        for (int u = 0; u < REV_BATCH; ++u) v[u] = r0 + u < d.R ? w.d_cur[(r0 + u) * b + i] : 0;
+#pragma unroll
+        for (int u = REV_BATCH - 1; u >= 0; --u)  // the first slot that holds dd (deltas are >= 1)
+          if (v[u] == dd) hit = r0 + u;
+      }
+    const unsigned m = __ballot_sync(FULL_MASK, hit >= 0);
+    if (hit >= 0) w.rev[(cnt + __popc(m & ((1u << lane) - 1u))) * b + j] = hit * b + i;
+    cnt += __popc(m);
   }
-  w.revcnt[j] = cnt;
-  w.paircnt[j] = w.paircnt[j] + (float)cnt;
+  if (lane == 0) {
+    w.revcnt[j] = cnt;
+    w.paircnt[j] = w.paircnt[j] + (float)cnt;
+  }
 }
 
 __device__ __forceinline__ void load_body(const float* __restrict__ rows, const Ws& w, int b, int i, Body& B) {

@@ -6,7 +6,10 @@ Traces with `torch.profiler` (CUPTI) and prints on labelled lines, in turn:
 
 - `physics`: CALLS 60-substep calls of the compact kernel with the bench's
   adaptive band, after one warm-up call: device time per kernel (sum, count,
-  share), the total, and the host's kernel-launch calls;
+  share; every kernel of the route), the total, the device span from the
+  first kernel's start to the last one's end with the kernels' busy share of
+  it (the rest is the gaps between dependent launches), and the host's
+  kernel-launch calls;
 - `physics-banded`: the same for the banded kernel (its fixed band of 128);
 - `dense-runner`: the headless dense runner
   (`SceneRunner(render_mode="none", use_megakernel=True)`) on the flagship,
@@ -80,9 +83,11 @@ def profile_physics(dev, acts, tag: str) -> None:
             ps = call(ps, params, DT, **kw)
         torch.cuda.synchronize()
     events = _device_events(prof)
-    total = _table(tag, events, top=15)
+    total = _table(tag, events, top=20)
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     print(f"{tag} device total: {total / 1e3:.3f} ms over {CALLS} calls = {total / 1e3 / CALLS:.3f} ms per call "
           f"({', '.join(f'{k} {v}' for k, v in kw.items() if k != 'n_substeps')})")
+    print(f"{tag} device span: {span / 1e3 / CALLS:.3f} ms per call, kernels busy {100 * total / span:.1f} % of it")
     print(f"{tag} kernel launches: {_launches(prof)} for {CALLS} calls")
 
 

@@ -58,8 +58,11 @@ from .profile_flagship import _device_events, _launches, _table
 from .render import gtao, renderer2d, renderer3d, shadows, sky
 
 # name prefixes of the port's own kernels, as `kernel_name` gives them
-OWN_KERNELS = {"compact": "k_", "raster": "raster_tiles_kernel", "hiz": "hiz_", "depth raster": "raster_depth_kernel",
+OWN_KERNELS = {"compact": "k_", "raster": "raster_tiles_kernel", "hiz": "hiz_", "depth raster": "raster_depth_",
                "blend": "blend2d_kernel", "group raster": "raster_groups_kernel"}
+# the depth raster's kernels per call (`raster_depth_chunks`, then `raster_depth_decode`; the
+# key buffer's clear before them is a memset, in the device total but in no stage)
+DEPTH_KERNELS_PER_CALL = 2
 # the stages that launch each own kernel, the enclosing ones too (the depth
 # raster: the clipmap level, per call)
 OWN_STAGES_3D = {"compact": ("physics (frame_step)",), "raster": ("tile raster",), "hiz": ("HiZ",),
@@ -152,8 +155,10 @@ def _own_kernels_by_stage(events: list, levels: list, own_stages=OWN_STAGES_3D) 
     for kind, stages in own_stages.items():
         for stage in stages:
             out[stage] += sum(e.time_range.elapsed_us() for e in by_kind[kind])
-    for name, e in zip(levels, by_kind["depth raster"]):
-        out[name] += e.time_range.elapsed_us()
+    depth = by_kind["depth raster"]
+    calls = [depth[i : i + DEPTH_KERNELS_PER_CALL] for i in range(0, len(depth), DEPTH_KERNELS_PER_CALL)]
+    for name, call in zip(levels, calls):
+        out[name] += sum(e.time_range.elapsed_us() for e in call)
     out["shadows: clipmaps (all levels)"] += sum(e.time_range.elapsed_us() for e in by_kind["depth raster"])
     return out
 

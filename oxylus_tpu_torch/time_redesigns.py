@@ -1,0 +1,161 @@
+"""Times the depth raster (`ops/csrc/raster_depth.cu`) and the compact
+rigid-body kernel (`physics/csrc/megakernel_compact.cu`) at the main path's
+shapes on one card, for this checkout or another one:
+
+    python -m oxylus_tpu_torch.time_redesigns
+    python oxylus_tpu_torch/time_redesigns.py --tree DIR   # DIR's oxylus_tpu_torch
+
+The second form (only as a file: `-m` has imported this checkout's package
+already) imports the package from DIR (for example a `git archive` of
+an earlier commit, unpacked into a directory that git ignores), so two
+versions of the kernels can be timed in turns on one card. Only entry points
+that both versions share are called.
+
+Prints the card's name and power limit, then one JSON object:
+- `depth_levels_ms`: the config-5 runner's first frame's six full-tier shadow
+  levels (1024², capacity 2048), each call's mean device time by CUDA events
+  over REPS launches after one warm-up; `depth_six_ms` their sum;
+  `depth_small_ms` the first small-tier call (capacity 768) of the frames
+  after it. Each call is first held exactly (depth bits, vid) against
+  `rasterize_depth_reference`.
+- `compact_main_ms`: the main path's compact call (1 substep, the config-5
+  runner's 255 boxes at capacity 512, after its frames);
+  `compact_physics_ms`: a 60-substep call from the flagship's start state
+  (1022 boxes, capacity 1024, the bench's adaptive band and hub planes, 3
+  iterations, warm 0.7, geometry every 2 substeps); `compact_10k_ms`: the same
+  from the `physics10k` start state (10 001 bodies, capacity 10112). Each
+  first run through `compact_substeps_reference` on the same inputs: the
+  bodies whose dropped-pair counts differ and the state rows' largest
+  difference are printed (`chip_smoke.py` holds them to their bounds).
+- `physics_rate`, `physics10k_rate`: the bench cells' body-steps/s
+  (`bench.run_physics`, `bench.run_physics10k`; their gates hold or they
+  raise).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPS = 20
+DT = 1.0 / 60.0
+
+
+def cuda_ms(torch, fn, reps: int = REPS) -> float:
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=None, help="the checkout whose oxylus_tpu_torch is timed")
+    args = ap.parse_args(argv)
+    here = Path(__file__).resolve().parent
+    sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != here]  # run as a file: not the package dir
+    if args.tree:
+        sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_redesigns needs a card", file=sys.stderr)
+        return 2
+    from oxylus_tpu_torch import bench
+    from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import raster_depth
+    from oxylus_tpu_torch.physics import megakernel_compact as mc
+    from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
+    from oxylus_tpu_torch.physics.state import PhysicsParams
+    from oxylus_tpu_torch.runtime import SceneRunner
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    out = {"tree": args.tree or ".", "package": raster_depth.__file__, "card": card}
+
+    # ---- the depth raster on the config-5 frame's shadow levels ----
+    scene, runner_kw = build_frame5_scene(1920, 1080, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    calls = []
+    raster = raster_depth.rasterize_depth
+
+    def record(*a):
+        calls.append(a)
+        return raster(*a)
+
+    raster_depth.rasterize_depth = record
+    try:
+        runner.step()
+        first = list(calls)
+        small = []
+        for _ in range(30):
+            calls.clear()
+            runner.step()
+            small = [a for a in calls if a[0].shape[0] == 768]
+            if small:
+                break
+    finally:
+        raster_depth.rasterize_depth = raster
+    if len(first) != 6 or not small:
+        raise RuntimeError(f"captured {len(first)} first-frame levels and {len(small)} small-tier calls")
+
+    def depth_ms(a):
+        got, want = raster(*a), raster_depth.rasterize_depth_reference(*a)
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(got[1], want[1])):
+            raise RuntimeError("depth raster kernel != plain")
+        return cuda_ms(torch, lambda: raster(*a))
+
+    out["depth_levels_ms"] = [depth_ms(a) for a in first]
+    out["depth_six_ms"] = sum(out["depth_levels_ms"])
+    out["depth_small_ms"] = depth_ms(small[0])
+
+    # ---- the compact kernel: the main path's call, the two physics shapes ----
+    def compact_ms(ps, params, **kw):
+        raw = []
+        run = mc.run_compact
+
+        def grab(scalars, rows, **k):
+            raw.append((scalars, rows, k))
+            return run(scalars, rows, **k)
+
+        mc.run_compact = grab
+        try:
+            mc.megakernel_substeps_compact(ps, params, DT, **kw)
+        finally:
+            mc.run_compact = run
+        scalars, rows, k = raw[0]
+        got = mc._compact_cuda(scalars, rows, **k)
+        want = mc.compact_substeps_reference(scalars, rows, **k)
+        check = {"err": (got[:15] - want[:15]).abs().max().item(), "ovf_diff": int((got[15] != want[15]).sum())}
+        return cuda_ms(torch, lambda: mc.megakernel_substeps_compact(ps, params, DT, **kw)), check
+
+    out["compact_main_ms"], out["compact_main_check"] = compact_ms(runner.ps, runner.physics_params, n_substeps=1)
+    params = PhysicsParams(comm="matmul")
+    for key, flag in (("compact_physics", build_flagship(device=dev)),
+                      ("compact_10k", build_flagship(10000, n_piles=10, device=dev, spec_kw=dict(
+                          max_entities=16384, max_bodies=10112, max_particles=1024)))):
+        ps = flag.physics_state
+        band = max(128, -(-(band_coverage_report(ps)["max_rank_dist"] + 96) // 128) * 128)
+        out[f"{key}_ms"], out[f"{key}_check"] = compact_ms(
+            ps, params, n_substeps=60, iterations=3, warm=0.7, geom_every=2, band=band, n_planes=count_hub_planes(ps))
+
+    # ---- the bench cells ----
+    out["physics_rate"] = bench.run_physics(device=dev)["value"]
+    out["physics10k_rate"] = bench.run_physics10k(device=dev)["value"]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
