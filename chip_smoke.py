@@ -46,7 +46,19 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    raster inputs (the early pass, K2 = 192, and the late pass, K2 = 128, when a
    late pass runs) and HiZ input are captured and run through the wrappers
    `run_tiles` / `build_hiz` and through the plain versions (exactly equal),
-   each wrapper timed with CUDA events; the early pass is binned again at
+   each wrapper timed with CUDA events over back-to-back calls and as a CUDA
+   graph of 20 calls; each raster pass prints its grid (clusters, CTAs) and
+   three work counts: the first port's operations (every real entry at all
+   4096 tile pixels), the least an exact design needs (a region test per
+   real entry and sub-tile, the planes at the covered (entry, pixel) pairs),
+   on which the bound is taken, and the (entry, pixel) pairs the kernel's
+   reject leaves it to evaluate (`raster3d.tile_work`); HiZ's bound counts
+   the depth read, the padded base and the levels written; the tile raster
+   is also held exactly on seeded inputs (`seeded_tiles`: border slivers,
+   single-corner covers, ties, missing entries, early-outs; `tie_tiles`: a
+   tile whose early-out decides an exact-depth tie) and HiZ at seeded depths
+   of other shapes (odd tail levels; a tail larger than the kernel's shared
+   buffer); the early pass is binned again at
    K2 = 256, the most the vid's entry field holds, to report what that
    capacity would drop; then one frame is rendered with the kernels and with
    the plain versions from a shared state, and the two images must be equal;
@@ -188,6 +200,13 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 RASTER_OPS_ENTRY_PIXEL = 53
 RASTER_OPS_COVERED = 6  # per covered (entry, pixel): max, reciprocal, multiply, the key's and + or, max
 RASTER_OPS_HIT = 45  # per hit pixel: 9 lanes × (2 mul + 2 add), the reciprocal, 8 multiplies
+# per (real entry, sub-tile): the reject test of 5 planes, each its margin (6 abs, 6 add, 2 mul,
+# negate) and 4 corner evaluations (4 mul + 5 add) with their compares
+RASTER_OPS_REGION_TEST = 5 * (15 + 4 * 10)
+GRAPH_REPS = 20  # calls in one CUDA graph, where a kernel is timed that way
+# `seeded_tiles`: the image (3 × 2 tiles, the last column and row cropped), slot rows, K2
+TILE_SEED_W, TILE_SEED_H, TILE_SEED_ROWS, TILE_SEED_K2 = 160, 100, 96, 192
+HIZ_SEEDED_SHAPES = ((100, 700), (129, 513), (8320, 8320))  # odd tails; a tail past the shared buffer
 # Group raster: per walked (tile, group) and live slot, the test of the slot's
 # screen bounds against the tile (4 compares); the planes and the cover test
 # (RASTER_OPS_ENTRY_PIXEL) then only at the image pixels of its span
@@ -445,6 +464,159 @@ def seeded_group_inputs(seed, tile, n_slots, with_near, band, dev):
 
 
 PROBE_REPS = 200  # timed launches per probe kernel (after one warm-up)
+
+
+def _tri_edge(p, q, inside):
+    """The edge function through p and q (a·x + b·y + c), positive on the side of `inside`."""
+    a, b = q[1] - p[1], -(q[0] - p[0])
+    c = -(a * p[0] + b * p[1])
+    s = 1.0 if a * inside[0] + b * inside[1] + c >= 0 else -1.0
+    return s * a, s * b, s * c
+
+
+def _plane_through(v, z):
+    """The plane z = a·x + b·y + c through three (x, y) vertices with values z."""
+    import numpy as np
+
+    m = np.array([[x, y, 1.0] for x, y in v])
+    return np.linalg.solve(m, np.asarray(z, np.float64))
+
+
+def _tile_triangle(rng, v, kind):
+    """(5, 3) plane coefficients (e0 e1 e2 zn wd) × (a b c) of a triangle and
+    its nearest depth (the largest vertex z, clipped to [0, 1])."""
+    import numpy as np
+
+    cen = np.mean(v, 0)
+    rows = [_tri_edge(v[i], v[(i + 1) % 3], cen if kind != "sliver" else v[(i + 2) % 3]) for i in range(3)]
+    z = rng.uniform(0.05, 0.85, 3) if kind != "cover" else rng.uniform(0.9, 0.99, 3)
+    if kind == "tie":
+        z[:] = 0.5
+    if kind == "wd_cross":  # wd falls below 0 across the image: covers only where it is positive
+        wv = rng.uniform(-0.5, 1.5, 3)
+    elif kind == "perspective":
+        wv = rng.uniform(0.5, 2.0, 3)
+    else:
+        wv = np.ones(3)
+    wd = _plane_through(v, wv) if kind != "tie" else np.array([0.0, 0.0, 1.0])
+    zn = _plane_through(v, z * wv) if kind != "tie" else np.array([0.0, 0.0, 0.5])  # z = 0.5 exactly
+    tz = float(np.clip(np.max(z), 0.0, 1.0))
+    return np.array(rows + [tuple(zn), tuple(wd)], np.float64), tz
+
+
+def _pixel_centre(rng, lo, hi):
+    return float(rng.integers(lo, hi)) + 0.5
+
+
+def _tile_vertices(rng, kind, w, h):
+    import numpy as np
+
+    if kind in ("snapped", "tie", "wd_cross"):  # vertices on pixel centres: edges through centres
+        return [(_pixel_centre(rng, 0, w), _pixel_centre(rng, 0, h)) for _ in range(3)]
+    if kind == "sliver":  # an edge along a sub-tile's border row or column of centres
+        sx, sy = int(rng.integers(0, w // 32 + 1)) * 32, int(rng.integers(0, h // 32 + 1)) * 32
+        row = sy + (0.5 if rng.uniform() < 0.5 else -0.5)
+        x0, x1 = sx + 0.5, sx + 0.5 + float(rng.integers(2, 40))
+        if rng.uniform() < 0.5:
+            return [(x0, row), (x1, row), ((x0 + x1) / 2, row - 7.0 * np.sign(rng.uniform(-1, 1)))]
+        col = sx + (0.5 if rng.uniform() < 0.5 else -0.5)
+        return [(col, row), (col, row + 30.0), (col - 9.0, row + 15.0)]
+    if kind == "corner":  # a small triangle around one corner centre of a sub-tile or warp block
+        cx = int(rng.integers(0, w // 16 + 1)) * 16 + 0.5
+        cy = int(rng.integers(0, h // 8 + 1)) * 8 + 0.5
+        return [(cx, cy), (cx + 0.9, cy + 0.2), (cx + 0.3, cy + 0.8)]
+    if kind == "cover":  # the whole image and past its edge
+        return [(-400.0, -400.0), (1200.0, -300.0), (-300.0, 1200.0)]
+    c = rng.uniform([-20, -20], [w + 20, h + 20])
+    return [tuple(c + rng.normal(0, rng.choice([2.0, 15.0, 60.0]), 2)) for _ in range(3)]
+
+
+def _tile_comb(planes, tz, rng):
+    """Slot rows as `build_tile_comb` lays them out: random attribute rows, the
+    15 plane coefficients, tz, material, instance, packed id."""
+    import numpy as np
+
+    from oxylus_tpu_torch.ops import raster3d as tr
+
+    n = len(planes)
+    comb = np.zeros((n, tr.COMB_W), np.float32)
+    comb[:, : tr.ATTR_W] = rng.normal(0, 1, (n, tr.ATTR_W))
+    comb[:, tr.PLANE_OFF : tr.PLANE_OFF + 15] = np.stack(planes).reshape(n, 15)
+    comb[:, tr.PLANE_OFF + 15] = tz
+    comb[:, tr.PLANE_OFF + 16 :] = rng.integers(0, 50, (n, 3))
+    return torch.from_numpy(comb)
+
+
+def seeded_tiles(seed, dev):
+    """Tile raster inputs made from a seed with NumPy, (entries (T, K2), comb,
+    counts, near_r, width, height) on `dev` at TILE_SEED_W × TILE_SEED_H (not a
+    multiple of the 64-px tile): planar triangles with vertices snapped to pixel
+    centres, slivers along sub-tile borders, single-corner covers, wd planes
+    crossing zero, depth ties, dead slots and tile-covering triangles in front
+    (so the early-out fires); each tile's list sorted by tz, nearest first, with
+    missing entries inside its count and -1 past it; one empty tile, one full."""
+    import numpy as np
+
+    from oxylus_tpu_torch.ops import raster3d as tr
+
+    w, h, n_rows, k2 = TILE_SEED_W, TILE_SEED_H, TILE_SEED_ROWS, TILE_SEED_K2
+    rng = np.random.default_rng(seed)
+    kinds = ["flat", "snapped", "sliver", "corner", "wd_cross", "perspective", "tie", "dead", "cover"]
+    planes, tz = [], []
+    for i in range(n_rows):
+        kind = kinds[i % len(kinds)] if i < 2 * len(kinds) else rng.choice(kinds, p=[.2, .2, .15, .1, .1, .1, .05,
+                                                                                      .06, .04])
+        if kind == "dead":  # e0 = -1e30 constant: never covers
+            co, z = _tile_triangle(rng, [(0, 0), (1, 0), (0, 1)], "flat")
+            co[0] = (0.0, 0.0, -1e30)
+        else:
+            v = _tile_vertices(rng, kind, w, h)
+            if abs((v[1][0] - v[0][0]) * (v[2][1] - v[0][1]) - (v[1][1] - v[0][1]) * (v[2][0] - v[0][0])) < 1e-3:
+                v[2] = (v[2][0] + 3.0, v[2][1] + 5.0)
+            co, z = _tile_triangle(rng, v, kind)
+        planes.append(co.astype(np.float32))
+        tz.append(z)
+    comb = _tile_comb(planes, np.asarray(tz, np.float32), rng)
+    n_tiles = -(-w // tr.TILE) * -(-h // tr.TILE)
+    entries = np.full((n_tiles, k2), -1, np.int32)
+    counts = np.zeros(n_tiles, np.int32)
+    for t in range(n_tiles):
+        n = [0, k2, 70][t] if t < 3 else int(rng.integers(1, k2 + 1))
+        rows = rng.integers(0, n_rows, n)
+        rows = rows[np.argsort(-np.asarray(tz)[rows], kind="stable")]
+        rows[rng.uniform(size=n) < 0.08] = -1  # missing entries inside the count
+        entries[t, :n] = rows
+        counts[t] = n
+    entries, comb = torch.from_numpy(entries).to(dev), comb.to(dev)
+    return entries, comb, torch.from_numpy(counts).to(dev), tr.pack_tile_blocks(entries, comb)["near_r"], w, h
+
+
+def tie_tiles(full: bool, dev):
+    """One 64² tile, two rounds. Round 0: two flat triangles at z = 0.5 (slots
+    10 and 11) cover all of the tile but its bottom-right sub-tile; with
+    `full`, a third (slot 12) covers that one too. Round 1: a triangle at the
+    same z (slot 5: a larger slot code) over part of the top-left sub-tile.
+    bits(0.5) has no bits under 127, so the round-1 triangle ties the masked
+    depth and wins wherever it is evaluated; the tile-wide early-out runs
+    round 1 unless the tile is full. On `dev`."""
+    import numpy as np
+
+    from oxylus_tpu_torch.ops import raster3d as tr
+
+    rng = np.random.default_rng(7)
+    verts = [[(31.9, -1e4), (31.9, 1e4), (-1e4, 0.0)],  # x < 31.9
+             [(-1e4, 31.9), (1e4, 31.9), (0.0, -1e4)],  # y < 31.9
+             [(31.0, 31.0), (1e4, 31.0), (31.0, 1e4)],  # the bottom-right sub-tile
+             [(4.0, 4.0), (24.0, 6.0), (8.0, 26.0)]]    # round 1, inside the top-left sub-tile
+    planes = [_tile_triangle(rng, v, "tie")[0].astype(np.float32) for v in verts]
+    comb = _tile_comb(planes, np.full(4, 0.5, np.float32), rng)
+    entries = torch.full((1, 128), -1, dtype=torch.int32)
+    entries[0, 10], entries[0, 11], entries[0, 64 + 5] = 0, 1, 3
+    if full:
+        entries[0, 12] = 2
+    entries, comb = entries.to(dev), comb.to(dev)
+    near_r = tr.pack_tile_blocks(entries, comb)["near_r"]
+    return entries, comb, torch.tensor([128], dtype=torch.int32, device=dev), near_r, tr.TILE, tr.TILE
 
 
 def probe_phase(dev, card: str, other_mods) -> list[dict]:
@@ -915,6 +1087,8 @@ def main() -> int:
             runner.step()
         if len(raster_calls) == 2:
             break
+    from oxylus_tpu_torch import probes
+
     raster_rows = []
     for args in raster_calls:
         entries, comb, counts, near_r, w, h = args
@@ -924,6 +1098,7 @@ def main() -> int:
         torch.cuda.synchronize()
         d_err = (got[0] - want_d).abs().max().item()
         g_err = (got[2].float() - want_g.float()).abs().max().item()
+        d_bits = int((got[0].view(torch.int32) != want_d.view(torch.int32)).sum())
         vid_diff = int((got[1] != want_v).sum())
         bits_diff = int((got[2].view(torch.int16) != want_g.view(torch.int16)).sum())
         hit = got[1] >= 0
@@ -932,21 +1107,43 @@ def main() -> int:
         win_rows = torch.unique(entries[v >> 8, v & 255]).numel()
         ref_rows = torch.unique(entries[entries >= 0]).numel()
         ms = cuda_ms(lambda: raster3d.run_tiles(*args), 20)
+        graph_ms = probes.time_us(lambda: raster3d.run_tiles(*args), dev, GRAPH_REPS)[0] * 1e-3
         plain = cuda_ms(lambda: raster3d._raster_tiles_plain(*args), 2)
         rounds = int(rounds_run.sum())
         real = int(torch.minimum(counts, rounds_run * raster3d.TILE_ROUND).sum())  # entries of the rounds run
         n_cov = int(covered.sum())
-        bd = bound(
-            (entries.numel() + counts.numel() + near_r.numel() + ref_rows * 15 + win_rows * 64) * 4 + w * h * 40,
-            real * 4096 * RASTER_OPS_ENTRY_PIXEL + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT,
-        )
+        work = raster3d.tile_work(entries, comb, rounds_run, w)
+        n_bytes = (entries.numel() + counts.numel() + near_r.numel() + ref_rows * 15 + win_rows * 64) * 4 + w * h * 40
+        old_ops = real * 4096 * RASTER_OPS_ENTRY_PIXEL + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT
+        least_ops = (work["region_tests"] * RASTER_OPS_REGION_TEST
+                     + n_cov * (RASTER_OPS_ENTRY_PIXEL + RASTER_OPS_COVERED) + n_hit * RASTER_OPS_HIT)
+        bd = bound(n_bytes, least_ops)
         print(f"[{label}] {entries.shape[0]} tiles, {int(counts.sum())} entries, {rounds} rounds run over {real} "
-              f"entries, {n_cov} covered (entry, pixel) pairs, {n_hit} hit pixels: kernel vs plain depth err "
-              f"{d_err}, gb err {g_err}, vid mismatches {vid_diff}, gb bit mismatches {bits_diff}; kernel {ms:.4f} "
-              f"ms, plain {plain:.2f} ms, bound {bd[0]:.4f} ms ({bd[1]}) ({card})", flush=True)
-        check(d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0, f"{label}: kernel != plain")
-        raster_rows.append((max(d_err, g_err), ms, plain, bd))
+              f"entries ({work['real']} real), {n_cov} covered (entry, pixel) pairs, {n_hit} hit pixels: kernel vs "
+              f"plain depth err {d_err}, depth bit mismatches {d_bits}, gb err {g_err}, vid mismatches {vid_diff}, "
+              f"gb bit mismatches {bits_diff}; grid {work['clusters']} clusters of {raster3d.CLUSTER} = "
+              f"{work['ctas']} CTAs; work: the first port's count {old_ops} operations ({real * 4096} (entry, pixel) "
+              f"pairs), the least exact count {least_ops} ({work['region_tests']} region tests, {n_cov} covered "
+              f"pairs), the kernel evaluates {work['evaluated']} (entry, pixel) pairs; kernel {ms:.4f} ms (events, "
+              f"back to back), {graph_ms:.4f} ms (CUDA graph of {GRAPH_REPS}), plain {plain:.2f} ms, bound "
+              f"{bd[0]:.4f} ms ({bd[1]}; {n_bytes} bytes, {least_ops} operations; on the first port's count "
+              f"{bound(n_bytes, old_ops)[0]:.4f} ms) ({card})", flush=True)
+        check(d_bits == 0 and d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0,
+              f"{label}: kernel != plain")
+        check(work["evaluated"] < real * 4096, f"{label}: the reject left every (entry, pixel) pair")
+        raster_rows.append((max(d_err, g_err), graph_ms, plain, bd))
     check(len(raster_rows) >= 1, "no raster call captured")
+    # Seeded inputs the captured frame may lack: slivers on sub-tile borders, single-corner covers,
+    # ties, missing entries, early-outs (`seeded_tiles`), and a tile whose tile-wide early-out
+    # decides an exact-depth tie (`tie_tiles`)
+    seeded = [seeded_tiles(seed, dev) for seed in range(3)] + [tie_tiles(full, dev) for full in (False, True)]
+    for i, args in enumerate(seeded):
+        got, want = raster3d.run_tiles(*args), raster3d.rasterize_tiles_reference(*args)
+        diff = sum(int((g.view(dt) != r.view(dt)).sum())
+                   for g, r, dt in zip(got, want, (torch.int32, torch.int32, torch.int16)))
+        check(diff == 0, f"5: tile raster on seeded input {i}: {diff} depth, vid or G-buffer bits differ")
+    print(f"[5] tile raster on {len(seeded)} seeded inputs ({TILE_SEED_W}x{TILE_SEED_H}, K2 = {TILE_SEED_K2}; "
+          f"two 64² ties): depth, vid and G-buffer bits equal to the plain version", flush=True)
     # What the widest triangle capacity the vid's 8-bit entry field allows
     # would drop: the early pass binned again at K2 = 256, and the part of the
     # drop that is the group stage's (meshlet-tile pairs past the
@@ -964,12 +1161,28 @@ def main() -> int:
     torch.cuda.synchronize()
     check([tuple(m.shape) for m in got] == [tuple(m.shape) for m in want], "HiZ level shapes differ")
     hiz_err = max((g - r).abs().max().item() for g, r in zip(got, want))
+    hiz_bits = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum()) for g, r in zip(got, want))
     hiz_ms = cuda_ms(lambda: hiz_ops.build_hiz(depth), 50)
+    hiz_graph_ms = probes.time_us(lambda: hiz_ops.build_hiz(depth), dev, GRAPH_REPS)[0] * 1e-3
     hiz_plain_ms = cuda_ms(lambda: hiz_ops.hiz_reference(depth), 10)
     n_out = sum(m.numel() for m in got[1:])
-    hiz_bound = bound((got[0].numel() + n_out) * 4, 3 * n_out)
-    print(f"[5] HiZ of {tuple(depth.shape)} → {[tuple(m.shape) for m in got]}: kernel vs plain max abs err {hiz_err}; "
-          f"kernel {hiz_ms:.4f} ms, plain {hiz_plain_ms:.3f} ms, bound {hiz_bound[0]:.4f} ms ({card})", flush=True)
+    hiz_bytes = (depth.numel() + got[0].numel() + n_out) * 4  # the depth read; the base and the levels written
+    hiz_bound = bound(hiz_bytes, 3 * n_out)
+    hp, wp = got[0].shape
+    print(f"[5] HiZ of {tuple(depth.shape)} → {[tuple(m.shape) for m in got]}: kernel vs plain max abs err {hiz_err}, "
+          f"bit mismatches {hiz_bits}; one launch of {(hp // hiz_ops.BLOCK) * (wp // hiz_ops.BLOCK)} CTAs; kernel "
+          f"{hiz_ms:.4f} ms (events, back to back), {hiz_graph_ms:.4f} ms (CUDA graph of {GRAPH_REPS}), plain "
+          f"{hiz_plain_ms:.3f} ms, bound {hiz_bound[0]:.4f} ms ({hiz_bound[1]}: {hiz_bytes} bytes) ({card})", flush=True)
+    check(hiz_bits == 0, "HiZ kernel != plain")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for h_s, w_s in HIZ_SEEDED_SHAPES:
+        d = torch.rand((h_s, w_s), generator=gen, device=dev)
+        d[: h_s // 3, : w_s // 4] = 0.0
+        got_s, want_s = hiz_ops.build_hiz(d), hiz_ops.hiz_reference(d)
+        check([tuple(m.shape) for m in got_s] == [tuple(m.shape) for m in want_s]
+              and all(torch.equal(g.view(torch.int32), r.view(torch.int32)) for g, r in zip(got_s, want_s)),
+              f"5: HiZ kernel != plain at {h_s}x{w_s}")
+    print(f"[5] HiZ on seeded depths at {HIZ_SEEDED_SHAPES}: every level equal to the plain version", flush=True)
     check(hiz_err == 0, "HiZ kernel != plain")
 
     cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
@@ -1755,7 +1968,7 @@ def main() -> int:
         row("raster_tiles", "oxylus_tpu_torch/ops/csrc/raster_tiles.cu", "oxylus_tpu/ops/raster3d.py:936",
             raster3d, max(r[0] for r in raster_rows), early[1], early[2], early[3]),
         row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
-            hiz_ms, hiz_plain_ms, hiz_bound),
+            hiz_graph_ms, hiz_plain_ms, hiz_bound),
         row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
             "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
         row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",

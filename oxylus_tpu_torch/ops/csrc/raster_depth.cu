@@ -44,7 +44,7 @@
 //   depth 0, vid -1 where the key is 0.
 // - Conservative reject per (sub-tile, slot), computed once per entry while its
 //   coefficients are staged: a slot is skipped only when one of its planes
-//   shows that it covers no pixel centre of the sub-tile (see reject_margin);
+//   shows that it covers no pixel centre of the sub-tile (plane_reject.cuh);
 //   each warp then tests the slots left at its own 16x8 block's corners the
 //   same way. A skipped slot gives z = -1 at every pixel there, which never
 //   wins. The division z = zn / wd runs only where a slot covers.
@@ -52,9 +52,9 @@
 //   with cp.async while the current one is evaluated (two buffers).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cmath>
 #include <cstdint>
+
+#include "plane_reject.cuh"
 
 namespace {
 
@@ -74,43 +74,6 @@ constexpr int COLS = PLANES * SLOTS;                   // coefficient columns pe
 constexpr int BLK = 3 * COLS;                          // floats per meshlet block
 constexpr int BLK_CHUNKS = BLK * 4 / 16;               // 16-byte cp.async pieces per block
 static_assert(COLS % 32 == 0 && (COLS - THREADS) % 32 == 0, "the stage loop's ballots need whole warps");
-
-// x rounded to bf16 (nearest even) and back: the hi part of the hi/lo split
-__device__ __forceinline__ float bf16_hi(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-// The plane sum in the TPU kernel's order. Its six products are exact (bf16
-// parts times centres k + 0.5 with k < 64 need at most 15 bits); only the five
-// additions round.
-__device__ __forceinline__ float plane(float ah, float bh, float ch, float al, float bl, float cl, float x, float y) {
-  return ((((ah * x + bh * y) + ch) + al * x) + bl * y) + cl;
-}
-
-// The reject's margin. Five rounded additions of six terms err by at most
-// g5 * T with g5 = 5u / (1 - 5u), u = 2^-24, and T the sum of the terms'
-// magnitudes, here bounded over the whole tile (x, y <= 63.5):
-// T = (|ah| + |al| + |bh| + |bl|) * 63.5 + |ch| + |cl|. With E the exact
-// affine function of the six parts, a centre p of the sub-tile and its corner
-// centres c: e(p) <= E(p) + g5*T <= max_c E(c) + g5*T <= max_c e(c) + 2*g5*T,
-// since an affine function takes its largest value over a rectangle at a
-// corner. So max_c e(c) < -2*g5*T proves e(p) < 0 at every centre. The margin
-// 2^-20 * T = 16u * T exceeds 2*g5*T = 10u/(1 - 5u) * T with room for the
-// rounding of T itself (a few u); the added 2^-126 covers what underflow can
-// lose (at most 2^-150 per operation, 11 operations per evaluation). An
-// infinite or NaN margin rejects nothing.
-__device__ __forceinline__ float reject_margin(float ah, float al, float bh, float bl, float ch, float cl) {
-  return ((fabsf(ah) + fabsf(al) + fabsf(bh) + fabsf(bl)) * 63.5f + fabsf(ch) + fabsf(cl)) * 0x1p-20f + 0x1p-126f;
-}
-
-// The reject test of one plane column at a rectangle's four corner centres:
-// e0 e1 e2 zn need >= 0 somewhere for a cover, wd needs > 0 somewhere. `mg`
-// is minus the margin; an infinite or NaN one rejects nothing.
-__device__ __forceinline__ bool plane_dead(bool is_wd, float mg, float ah, float bh, float ch, float al, float bl,
-                                           float cl, float x0, float x1, float y0, float y1) {
-  const float e00 = plane(ah, bh, ch, al, bl, cl, x0, y0), e01 = plane(ah, bh, ch, al, bl, cl, x1, y0);
-  const float e10 = plane(ah, bh, ch, al, bl, cl, x0, y1), e11 = plane(ah, bh, ch, al, bl, cl, x1, y1);
-  return isfinite(mg) && (is_wd ? (e00 <= mg && e01 <= mg && e10 <= mg && e11 <= mg)
-                                : (e00 < mg && e01 < mg && e10 < mg && e11 < mg));
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);

@@ -13,7 +13,11 @@ level shapes and so other edge clamps in `occlusion_test`.
 
 `build_hiz` is the wrapper: CPU tensors take the plain version `hiz_reference`,
 CUDA tensors the kernel `csrc/hiz.cu` (counted in `LAUNCHES`), or it raises.
-Min is exact, so kernel and plain agree exactly.
+Min is exact, so kernel and plain agree exactly. The kernel is one launch: a
+CTA per BLOCK² block of the padded base reads the depth, writes the base and
+its block's first BLOCK_LEVELS levels, and the last CTA to finish (a counter
+the wrapper keeps per card) walks the tail; `hiz_block_levels` is a plain
+model of that split for the tests.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ Tensor = torch.Tensor
 MAX_MIPS = 13
 SPD_TILE_H = 128
 SPD_TILE_W = 512
-SPD_LEVELS = 2  # levels written per 128×512 tile; the tail levels follow
+SPD_LEVELS = 2  # the TPU kernel's tiled levels, which halve the padded base exactly; the tail follows
+BLOCK = 64  # the kernel's block of the padded base, one CTA each
+BLOCK_LEVELS = 6  # levels a CTA reduces itself (64 → 1); the last CTA to finish walks the rest
 
 LAUNCHES = 0
 
@@ -64,20 +70,45 @@ def hiz_reference(depth: Tensor, max_mips: int = MAX_MIPS) -> list[Tensor]:
     return mips
 
 
+def hiz_block_levels(depth: Tensor, max_mips: int = MAX_MIPS) -> list[Tensor]:
+    """Plain model of the kernel's split: each BLOCK² block of the padded base
+    reduced on its own through its first BLOCK_LEVELS levels, the blocks'
+    levels put side by side, then the tail levels from the last of them with
+    the zero-partner rule. Equal to `hiz_reference` level for level."""
+    shapes = mip_shapes(*depth.shape, max_mips)
+    (hp, wp), lv_block = shapes[0], min(BLOCK_LEVELS, len(shapes) - 1)
+    mips = [_pad_base(depth)]
+    blocks = mips[0].reshape(hp // BLOCK, BLOCK, wp // BLOCK, BLOCK).permute(0, 2, 1, 3)  # (by, bx, y, x)
+    for lv in range(1, lv_block + 1):
+        s = blocks.shape[-1] // 2
+        blocks = blocks.reshape(*blocks.shape[:2], s, 2, s, 2).amin(dim=(3, 5))
+        mips.append(blocks.permute(0, 2, 1, 3).reshape(hp >> lv, wp >> lv))
+    for _ in shapes[lv_block + 1 :]:
+        mips.append(_min_downsample(mips[-1]))
+    return mips
+
+
+_COUNTERS: dict[torch.device, Tensor] = {}  # per card: the kernel's finished-block counter, left zeroed
+
+
 def _hiz_cuda(depth: Tensor, max_mips: int) -> list[Tensor]:
-    """Launch `hiz_build` on PyTorch's current stream: one launch for the two
-    tiled levels, one for the tail. Raises on a build or launch error."""
+    """Launch `hiz_build` on PyTorch's current stream: one launch writes the
+    padded base and every level. Raises on a build or launch error."""
     from .._build import load_kernel_library
 
     lib = load_kernel_library()
     if depth.dtype != torch.float32 or depth.dim() != 2:
         raise ValueError("depth must be a 2-D float32 tensor")
+    depth = depth.contiguous()
+    dev = depth.device
+    if dev not in _COUNTERS:
+        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     shapes = mip_shapes(*depth.shape, max_mips)
-    base = _pad_base(depth)
-    sizes = [hh * ww for hh, ww in shapes[1:]]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=depth.device)
-    err = lib.hiz_build(base.data_ptr(), shapes[0][0], shapes[0][1], len(shapes), flat.data_ptr(),
-                        torch.cuda.current_stream(depth.device).cuda_stream)
+    (hp, wp), sizes = shapes[0], [hh * ww for hh, ww in shapes[1:]]
+    base = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    err = lib.hiz_build(depth.data_ptr(), depth.shape[0], depth.shape[1], hp, wp, len(shapes), base.data_ptr(),
+                        flat.data_ptr(), _COUNTERS[dev].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hiz_build launch failed: {lib.kernel_error_string(err).decode()}")
     return [base] + [m.view(s) for m, s in zip(torch.split(flat, sizes), shapes[1:])]

@@ -28,6 +28,15 @@ The kernel's input is the shared per-slot row matrix `comb` from
 `build_tile_comb` and the entry lists: it reads each entry's row directly, so
 `pack_tile_blocks` gathers only the slot tables and the per-round nearest-z
 table, not the TPU kernel's per-(tile, round) plane blocks.
+
+The kernel runs a tile as a cluster of CLUSTER CTAs, one per SUB² sub-tile,
+which take the early-out together (tile-wide, round by round), and skips a
+slot in a sub-tile, then in each warp's WARP_W × WARP_H block, only where a
+plane proves it covers no pixel centre there (`tile_region_reject`,
+`tile_warp_reject`; the test the depth raster uses, `plane_region_reject`).
+`tile_work` counts what that rule evaluates. The main path does not call
+them: they are plain mirrors of the kernel's rules for the tests
+(`tests/test_torch_raster_tiles_reject.py`) and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -43,6 +52,12 @@ ATTR_W = 64       # per-slot attribute row: [a(16) | b(16) | c(16) | consts(16)]
 COMB_W = ATTR_W + 15 + 4  # comb row: attrB 64 | coeffs 15 | tz | material | instance | packed id
 PLANE_OFF = ATTR_W       # the 15 plane coefficients, plane-major (e0 e1 e2 zn wd) × (a b c)
 TILES_PER_CHUNK = 16     # plain version: tiles evaluated together
+SUB = 32                 # the kernel's sub-tile side: one CTA of the tile's cluster each
+CLUSTER = (TILE // SUB) ** 2
+WARP_W, WARP_H = 16, 8   # a warp's block of the sub-tile
+# the reject's margin: 2^-20 of the plane terms' magnitudes over the tile, plus
+# 2^-126 for underflow (the bound is derived in csrc/plane_reject.cuh)
+REJECT_MARGIN_SCALE, REJECT_MARGIN_FLOOR, REJECT_SPAN = 2.0**-20, 2.0**-126, TILE - 0.5
 
 LAUNCHES = 0
 
@@ -214,6 +229,80 @@ def _raster_tiles_plain(entries: Tensor, comb: Tensor, counts: Tensor, near_r: T
 def rasterize_tiles_reference(entries, comb, counts, near_r, width, height):
     """The plain PyTorch version of the CUDA kernel: (depth, vid, gb)."""
     return _raster_tiles_plain(entries, comb, counts, near_r, width, height)[:3]
+
+
+def plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw: int, rh: int) -> Tensor:
+    """The kernels' reject test of planes given by their hi/lo parts (each
+    (...,), tile-local constant), over the rw × rh regions of a tile: (...,
+    TILE // rh, TILE // rw) bool, True where the plane, evaluated as the pixels
+    evaluate it at the region's four corner centres, is below -margin at all
+    four (e0, e1, e2, zn), or at or below it where `is_wd`, with margin =
+    ((|a_h| + |a_l| + |b_h| + |b_l|) · 63.5 + |c'_h| + |c'_l|) · 2^-20 + 2^-126
+    finite."""
+    margin = (((((ah.abs() + al.abs()) + bh.abs()) + bl.abs()) * REJECT_SPAN + ch.abs()) + cl.abs()) \
+        * REJECT_MARGIN_SCALE + REJECT_MARGIN_FLOOR
+    dev = ah.device
+    lo_x = torch.arange(TILE // rw, dtype=torch.float32, device=dev) * rw + 0.5
+    lo_y = torch.arange(TILE // rh, dtype=torch.float32, device=dev)[:, None] * rh + 0.5
+    ex = lambda v: v[..., None, None]
+    ah, al, bh, bl, ch, cl, mg = map(ex, (ah, al, bh, bl, ch, cl, -margin))
+    below = at_or_below = None
+    for cx in (lo_x, lo_x + (rw - 1)):
+        for cy in (lo_y, lo_y + (rh - 1)):
+            e = ((((ah * cx + bh * cy) + ch) + al * cx) + bl * cy) + cl
+            lt, le = e < mg, e <= mg
+            below = lt if below is None else below & lt
+            at_or_below = le if at_or_below is None else at_or_below & le
+    return torch.where(ex(is_wd), at_or_below, below) & torch.isfinite(mg)
+
+
+def tile_region_reject(entries: Tensor, comb: Tensor, width: int, rw: int, rh: int) -> Tensor:
+    """The tile raster's reject over the rw × rh regions of each tile: (tiles,
+    K2, TILE // rh, TILE // rw) bool, True where a plane of entry k's slot (a
+    missing entry: a = b = 0 and e0's constant -1e30, as the kernel stages it)
+    proves, by `plane_region_reject`, that it covers no pixel centre of the
+    region."""
+    dev = entries.device
+    t_n, k2 = entries.shape
+    tx = (width + TILE - 1) // TILE
+    tg = torch.arange(t_n, device=dev)
+    x0 = ((tg % tx) * TILE).to(torch.float32)[:, None, None]
+    y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None, None]
+    have = (entries >= 0)[..., None]
+    co = comb[torch.clamp(entries, min=0).long(), PLANE_OFF : PLANE_OFF + 15]
+    co = torch.where(have, co, 0.0).reshape(t_n, k2, 5, 3)
+    a, b, c = co[..., 0], co[..., 1], co[..., 2]  # (T, K2, 5)
+    c = torch.where(have | (torch.arange(5, device=dev) > 0), c, -1e30)
+    cp = (c + x0 * a) + y0 * b
+    (ah, al), (bh, bl), (ch, cl) = (_split_hilo(v) for v in (a, b, cp))
+    is_wd = torch.arange(5, device=dev) == 4
+    return plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw, rh).any(2)
+
+
+def tile_warp_reject(entries: Tensor, comb: Tensor, width: int) -> Tensor:
+    """The slots each warp of the tile raster skips: (tiles, K2, TILE // WARP_H,
+    TILE // WARP_W) bool over the tile's WARP_W × WARP_H blocks, one per warp:
+    what its sub-tile's reject skips and what the same test at its own block's
+    corners does."""
+    sub = tile_region_reject(entries, comb, width, SUB, SUB)
+    sub = sub.repeat_interleave(SUB // WARP_H, 2).repeat_interleave(SUB // WARP_W, 3)
+    return sub | tile_region_reject(entries, comb, width, WARP_W, WARP_H)
+
+
+def tile_work(entries: Tensor, comb: Tensor, rounds_run: Tensor, width: int) -> dict[str, int]:
+    """What the tile raster does in the rounds each tile ran (`rounds_run`, from
+    `_raster_tiles_plain`): `real`, the entries ≥ 0 of those rounds; `region_tests`,
+    one reject test per (real entry, sub-tile); `evaluated`, the (entry, pixel)
+    pairs at which a warp evaluates the planes, each warp block's slots that
+    `tile_warp_reject` keeps at its WARP_W·WARP_H pixels; and the grid, `clusters`
+    (one per tile) and `ctas`."""
+    t_n, k2 = entries.shape
+    ran = torch.div(torch.arange(k2, device=entries.device), TILE_ROUND, rounding_mode="floor")[None] \
+        < rounds_run[:, None]
+    real = int(((entries >= 0) & ran).sum())
+    kept = ~tile_warp_reject(entries, comb, width) & ran[:, :, None, None]
+    return {"real": real, "region_tests": real * CLUSTER, "evaluated": int(kept.sum()) * WARP_W * WARP_H,
+            "clusters": t_n, "ctas": t_n * CLUSTER}
 
 
 # ---------------------------------------------------------------------------

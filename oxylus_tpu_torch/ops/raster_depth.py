@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from .raster3d import TILE, _split_hilo, _tile_local_pixels
+from .raster3d import TILE, _split_hilo, _tile_local_pixels, plane_region_reject
 
 Tensor = torch.Tensor
 
@@ -51,9 +51,6 @@ SUB = 32  # the kernel's sub-tile side
 SUBS = (TILE // SUB) ** 2  # sub-tiles per tile
 WARP_W, WARP_H = 16, 8  # a warp's block of the sub-tile
 ENTRIES_PER_CTA = 4  # the kernel's entry chunk: one CTA per (tile, sub-tile, chunk)
-# the reject's margin: 2^-20 of the plane terms' magnitudes over the tile, plus
-# 2^-126 for underflow (the bound is derived in csrc/raster_depth.cu)
-REJECT_MARGIN_SCALE, REJECT_MARGIN_FLOOR, REJECT_SPAN = 2.0**-20, 2.0**-126, TILE - 0.5
 KEY_LOW = 0xFFFFFFFF
 
 LAUNCHES = 0
@@ -173,10 +170,8 @@ def _live_pair_planes(coeff_mat: Tensor, tile_list: Tensor, width: int, height: 
 def _region_reject(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int, rw: int, rh: int) -> Tensor:
     """The kernel's reject test over the rw × rh regions of each tile:
     (tiles, TILE // rh, TILE // rw, K, R) bool, True where a plane of slot s of
-    entry k, evaluated as the pixels evaluate it at the region's four corner
-    centres, is below -margin at all four (e0, e1, e2, zn) or at or below it
-    (wd), with margin = ((|a_h| + |a_l| + |b_h| + |b_l|) · 63.5 + |c'_h| +
-    |c'_l|) · 2^-20 + 2^-126 finite. Entries past the tile's cnt are False."""
+    entry k proves it covers no pixel centre of the region
+    (`raster3d.plane_region_reject`). Entries past the tile's cnt are False."""
     dev = coeff_mat.device
     tx, _ = _tile_grid(width, height)
     n_tiles, k_all = tile_list.shape
@@ -190,24 +185,9 @@ def _region_reject(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int
     a, b, c = blk[:, :, 0], blk[:, :, 1], blk[:, :, 2]
     cp = (c + x0 * a) + y0 * b
     (ah, al), (bh, bl), (ch, cl) = (_split_hilo(v) for v in (a, b, cp))
-    margin = (((((ah.abs() + al.abs()) + bh.abs()) + bl.abs()) * REJECT_SPAN + ch.abs()) + cl.abs()) \
-        * REJECT_MARGIN_SCALE + REJECT_MARGIN_FLOOR
-    mg = -margin
     is_wd = torch.arange(N_DEPTH_PLANES * r, device=dev) >= (N_DEPTH_PLANES - 1) * r
     live = torch.arange(k_cap, device=dev)[None, :] < cnt[:, None]
-    # the regions' corner centres, broadcast over (T, K, 5R, rows, columns)
-    lo_x = torch.arange(TILE // rw, dtype=torch.float32, device=dev) * rw + 0.5
-    lo_y = torch.arange(TILE // rh, dtype=torch.float32, device=dev)[:, None] * rh + 0.5
-    ex = lambda v: v[..., None, None]
-    ah, al, bh, bl, ch, cl, mg = map(ex, (ah, al, bh, bl, ch, cl, mg))
-    below = at_or_below = None
-    for cx in (lo_x, lo_x + (rw - 1)):
-        for cy in (lo_y, lo_y + (rh - 1)):
-            e = ((((ah * cx + bh * cy) + ch) + al * cx) + bl * cy) + cl
-            lt, le = e < mg, e <= mg
-            below = lt if below is None else below & lt
-            at_or_below = le if at_or_below is None else at_or_below & le
-    dead = torch.where(ex(is_wd), at_or_below, below) & torch.isfinite(mg)  # (T, K, 5R, rows, columns)
+    dead = plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw, rh)  # (T, K, 5R, rows, columns)
     dead = dead.reshape(n_tiles, k_cap, N_DEPTH_PLANES, r, TILE // rh, TILE // rw).any(2)
     dead = dead.permute(0, 3, 4, 1, 2) & live[:, None, None, :, None]
     return torch.nn.functional.pad(dead, (0, 0, 0, k_all - k_cap))

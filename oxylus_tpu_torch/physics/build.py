@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .state import (
     BODY_DYNAMIC,
     BODY_FIELDS,
@@ -34,9 +35,12 @@ _COLLIDER_ORDER = (
 )
 
 
-def build_physics_state(scene, device: torch.device | str = "cpu") -> PhysicsState:
+def build_physics_state(scene, device: torch.device | str | None = None) -> PhysicsState:
+    """The scene's bodies on `device` (the card unless the CPU is asked for),
+    built on the host."""
+    device = resolve_device(device)
     spec = scene.spec
-    ps = empty_physics_state(spec.max_bodies)
+    ps = empty_physics_state(spec.max_bodies, "cpu")
     host = {name: getattr(ps, name).numpy().copy() for name in BODY_FIELDS}
 
     slot = 0

@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 Tensor = torch.Tensor
 
 # body_type codes (match RigidBodyComponent::BodyType order)
@@ -136,7 +138,9 @@ class PhysicsState:
         return self.active.device
 
 
-def empty_physics_state(max_bodies: int, device: torch.device | str = "cpu") -> PhysicsState:
+def empty_physics_state(max_bodies: int, device: torch.device | str | None = None) -> PhysicsState:
+    """The empty body table on `device` (the card unless the CPU is asked for)."""
+    device = resolve_device(device)
     b = max_bodies
     fields = {}
     for name, (shape, dtype) in BODY_FIELDS.items():

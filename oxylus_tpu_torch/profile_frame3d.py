@@ -57,7 +57,8 @@ from .physics import megakernel_compact as mc
 from .profile_flagship import _device_events, _launches, _table
 from .render import gtao, renderer2d, renderer3d, shadows, sky
 
-# name prefixes of the port's own kernels, as `kernel_name` gives them
+# name prefixes of the port's own kernels, as `kernel_name` gives them, in the
+# order of `mods` in `main`
 OWN_KERNELS = {"compact": "k_", "raster": "raster_tiles_kernel", "hiz": "hiz_", "depth raster": "raster_depth_",
                "blend": "blend2d_kernel", "group raster": "raster_groups_kernel"}
 # the depth raster's kernels per call (`raster_depth_chunks`, then `raster_depth_decode`; the
@@ -224,8 +225,10 @@ def main() -> None:
     # the device's activities, without the stage ranges the profiler also marks on its timeline
     events = [e for e in _device_events(prof) if not e.name.startswith("stage:")]
     reads = sum(1 for e in events if "DtoH" in e.name or "Device -> Pageable" in e.name) / frames
-    for name, prefix in OWN_KERNELS.items():
+    for (name, prefix), calls in zip(OWN_KERNELS.items(), own):
         mine = [e for e in events if kernel_name(e).startswith(prefix)]
+        if calls > 0 and not mine:  # a renamed kernel would drop out of its stage unnoticed
+            raise RuntimeError(f"{name}: {calls} wrapper calls per frame but no device kernel named {prefix}*")
         print(f"{tag} own kernel {name}: {sum(e.time_range.elapsed_us() for e in mine) / frames:.1f} us per frame "
               f"over {len(mine) / frames:.1f} device launches per frame")
     _stage_table(prof, frames, _own_kernels_by_stage(events, levels, OWN_STAGES_2D if two_d else OWN_STAGES_3D),

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
 from .state import SceneSpec, SceneState
 
 Tensor = torch.Tensor
@@ -34,7 +35,9 @@ class ParticlePool:
     cursor: Tensor    # () i32 ring cursor
 
 
-def empty_pool(spec: SceneSpec, device: torch.device | str = "cpu") -> ParticlePool:
+def empty_pool(spec: SceneSpec, device: torch.device | str | None = None) -> ParticlePool:
+    """The empty particle pool on `device` (the card unless the CPU is asked for)."""
+    device = resolve_device(device)
     m = spec.max_particles
     return ParticlePool(
         alive=torch.zeros((m,), dtype=torch.bool, device=device),

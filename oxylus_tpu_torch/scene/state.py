@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..utils import math3d
 from . import components as C
 
@@ -81,8 +82,11 @@ def _identity_worlds(n: int, device) -> Tensor:
     return torch.eye(4, dtype=torch.float32, device=device).expand(n, 4, 4).clone()
 
 
-def empty_state(spec: SceneSpec, device: torch.device | str = "cpu") -> SceneState:
+def empty_state(spec: SceneSpec, device: torch.device | str | None = None) -> SceneState:
+    """The empty scene state on `device` (the card unless the CPU is asked for)."""
     from .particles import empty_pool
+
+    device = resolve_device(device)
 
     n = spec.padded_entities()
     comp: dict[str, dict[str, Tensor]] = {}

@@ -1,6 +1,7 @@
-"""Times the depth raster (`ops/csrc/raster_depth.cu`) and the compact
-rigid-body kernel (`physics/csrc/megakernel_compact.cu`) at the main path's
-shapes on one card, for this checkout or another one:
+"""Times the depth raster (`ops/csrc/raster_depth.cu`), the compact
+rigid-body kernel (`physics/csrc/megakernel_compact.cu`), the tile G-buffer
+raster (`ops/csrc/raster_tiles.cu`) and HiZ (`ops/csrc/hiz.cu`) at the main
+path's shapes on one card, for this checkout or another one:
 
     python -m oxylus_tpu_torch.time_redesigns
     python oxylus_tpu_torch/time_redesigns.py --tree DIR   # DIR's oxylus_tpu_torch
@@ -27,6 +28,12 @@ Prints the card's name and power limit, then one JSON object:
   first run through `compact_substeps_reference` on the same inputs: the
   bodies whose dropped-pair counts differ and the state rows' largest
   difference are printed (`chip_smoke.py` holds them to their bounds).
+- `tiles_ms`: the tile raster's early pass (K2 = 192) and late pass (K2 =
+  128) of one config-5 frame that runs both, `hiz_ms`: that frame's HiZ call;
+  each `[events, graph]`: the mean device time by CUDA events over REPS calls
+  back to back after one warm-up, and per call in a CUDA graph of REPS calls.
+  Each call is first held exactly (depth bits, vid, G-buffer bits; every HiZ
+  level) against its plain version.
 - `physics_rate`, `physics10k_rate`: the bench cells' body-steps/s
   (`bench.run_physics`, `bench.run_physics10k`; their gates hold or they
   raise).
@@ -56,6 +63,23 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int = REPS) -> float:
+    """Device time per call of `fn` in a CUDA graph of `reps` calls (what the
+    host adds per call, back to back, stays out)."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None, help="the checkout whose oxylus_tpu_torch is timed")
@@ -72,7 +96,7 @@ def main(argv: list[str]) -> int:
     from oxylus_tpu_torch import bench
     from oxylus_tpu_torch.flagship import build_flagship
     from oxylus_tpu_torch.frame5 import build_frame5_scene
-    from oxylus_tpu_torch.ops import raster_depth
+    from oxylus_tpu_torch.ops import hiz, raster3d, raster_depth
     from oxylus_tpu_torch.physics import megakernel_compact as mc
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
     from oxylus_tpu_torch.physics.state import PhysicsParams
@@ -84,31 +108,42 @@ def main(argv: list[str]) -> int:
     print(card, flush=True)
     out = {"tree": args.tree or ".", "package": raster_depth.__file__, "card": card}
 
-    # ---- the depth raster on the config-5 frame's shadow levels ----
+    # ---- the config-5 frame's captured calls: the depth raster's shadow levels, and the tile
+    # raster's passes and HiZ of the first frame that runs the late pass ----
     scene, runner_kw = build_frame5_scene(1920, 1080, device=dev)
     runner = SceneRunner(scene, **runner_kw)
-    calls = []
-    raster = raster_depth.rasterize_depth
+    calls, tiles, hizs, both = [], [], [], []
+    raster, run_tiles, build_hiz = raster_depth.rasterize_depth, raster3d.run_tiles, hiz.build_hiz
 
-    def record(*a):
-        calls.append(a)
-        return raster(*a)
-
-    raster_depth.rasterize_depth = record
-    try:
+    def step():
+        calls.clear()
+        tiles.clear()
+        hizs.clear()
         runner.step()
+        if not both and len(tiles) == 2 and hizs:
+            both.extend([list(tiles), hizs[0]])
+
+    raster_depth.rasterize_depth = lambda *a: (calls.append(a), raster(*a))[1]
+    raster3d.run_tiles = lambda *a: (tiles.append(a), run_tiles(*a))[1]
+    hiz.build_hiz = lambda *a: (hizs.append(a), build_hiz(*a))[1]
+    try:
+        step()
         first = list(calls)
         small = []
         for _ in range(30):
-            calls.clear()
-            runner.step()
+            step()
             small = [a for a in calls if a[0].shape[0] == 768]
             if small:
                 break
+        for _ in range(120):  # the late pass runs once the pile hides and uncovers objects
+            if both:
+                break
+            step()
     finally:
-        raster_depth.rasterize_depth = raster
-    if len(first) != 6 or not small:
-        raise RuntimeError(f"captured {len(first)} first-frame levels and {len(small)} small-tier calls")
+        raster_depth.rasterize_depth, raster3d.run_tiles, hiz.build_hiz = raster, run_tiles, build_hiz
+    if len(first) != 6 or not small or not both:
+        raise RuntimeError(f"captured {len(first)} first-frame levels, {len(small)} small-tier calls and "
+                           f"{'a' if both else 'no'} frame with both raster passes")
 
     def depth_ms(a):
         got, want = raster(*a), raster_depth.rasterize_depth_reference(*a)
@@ -119,6 +154,21 @@ def main(argv: list[str]) -> int:
     out["depth_levels_ms"] = [depth_ms(a) for a in first]
     out["depth_six_ms"] = sum(out["depth_levels_ms"])
     out["depth_small_ms"] = depth_ms(small[0])
+
+    # ---- the tile raster's two passes and HiZ on the frame captured above ----
+    def tiles_ms(a):
+        got, want = run_tiles(*a), raster3d.rasterize_tiles_reference(*a)
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and torch.equal(got[1], want[1])
+                and torch.equal(got[2].view(torch.int16), want[2].view(torch.int16))):
+            raise RuntimeError("tile raster kernel != plain")
+        return [cuda_ms(torch, lambda: run_tiles(*a)), graph_ms(torch, lambda: run_tiles(*a))]
+
+    out["tiles_ms"] = [tiles_ms(a) for a in both[0]]
+    depth = both[1][0]
+    if not all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+               for g, r in zip(build_hiz(depth), hiz.hiz_reference(depth))):
+        raise RuntimeError("HiZ kernel != plain")
+    out["hiz_ms"] = [cuda_ms(torch, lambda: build_hiz(depth)), graph_ms(torch, lambda: build_hiz(depth))]
 
     # ---- the compact kernel: the main path's call, the two physics shapes ----
     def compact_ms(ps, params, **kw):
