@@ -15,7 +15,9 @@ headless dense runner on the flagship (1022 boxes, capacity 1024), the
 default runner on `entry()`'s scene (255 boxes, capacity 512), the 2D runner
 on config 2 (phase 10), the 3D frame with particles on config 3 (phase
 11), the physics bench cells (phase 12), the config-5 frame through the
-group raster route (phase 13) and the Hopper probes (phase 14), with bodies
+group raster route (phase 13), the Hopper probes (phase 14), the
+Sponza-class atrium of config 4 with its textured and alpha-masked materials
+(phase 15) and the port's bench suite (phase 16), with bodies and the atrium
 made from a fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
@@ -153,7 +155,27 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    against its plain version on the scripts' and seeded inputs (exact; the
    bf16 and float32 products within their sum-order bounds), timed as a CUDA
    graph of 200 calls beside its plain version, its bound and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time;
+15. config 4, `build_sponza_scene(1920, 1080)` (the atrium GLB generated from
+   seed 42 and imported and baked on the host; PIL's version, the seconds of
+   each host step, the prepass capacities and the masked meshlets printed):
+   every launch count set to 0, then 2 warm-up frames and 8 more; from the
+   last warm-up frame on, `expand_overflow` and `bin_overflow` 0; every frame
+   after the warm-up launches the tile raster for the opaque pass (K2 256)
+   and the masked pass (K2 128, last) and HiZ; the depth raster launched (the
+   static atrium's shadow pages render while the residency fills and stay
+   cached); the image finite in [0, 1]; one frame rendered with the kernels
+   and with the plain versions from a shared state and carry, without the
+   shadow page cache so every level renders (identical), its tile raster
+   passes held exactly against the plain version and timed with their
+   bounds; seeded masked-pass inputs (K2 128) exactly equal to the plain
+   version; frames/s over 3 windows of 12 frames;
+16. `python -m oxylus_tpu_torch.bench` in a subprocess: every cell's line
+   (value > 0 for all six) and the weakest cell with `suite` as its last line.
+
+Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
+HiZ wrapper keeps a finished-block counter per card and stream) and holds
+each bit for bit against `hiz_reference`.
 
 Any failed check raises, so the script exits non-zero; it also exits non-zero,
 without printing a result, when no card is visible or the package is absent.
@@ -207,6 +229,7 @@ GRAPH_REPS = 20  # calls in one CUDA graph, where a kernel is timed that way
 # `seeded_tiles`: the image (3 × 2 tiles, the last column and row cropped), slot rows, K2
 TILE_SEED_W, TILE_SEED_H, TILE_SEED_ROWS, TILE_SEED_K2 = 160, 100, 96, 192
 HIZ_SEEDED_SHAPES = ((100, 700), (129, 513), (8320, 8320))  # odd tails; a tail past the shared buffer
+HIZ_STREAM_SHAPE, HIZ_STREAM_ROUNDS = (4320, 7680), 8  # the two-stream check: 8K depths, so the launches overlap
 # Group raster: per walked (tile, group) and live slot, the test of the slot's
 # screen bounds against the tile (4 compares); the planes and the cover test
 # (RASTER_OPS_ENTRY_PIXEL) then only at the image pixels of its span
@@ -251,7 +274,14 @@ BLEND_OUT_BYTES_PIXEL = 20  # RGBA f32 + the i32 id
 # ulps, so a white texel blends to 1.0000002 (the JAX device branch gives the
 # same on config 2)
 BLEND_RANGE_ROUNDING = 1e-6
+# FXAA blends a pixel with its neighbours by bilinear weights that sum to 1
+# only to a few ulps, so saturated neighbours (the atrium's emissive windows)
+# give 1.0000001; the JAX function gives the same on an input in [0, 1]
+# (tests/test_torch_sponza.py::test_fxaa_rounds_past_one_as_jax)
+FXAA_RANGE_ROUNDING = 1e-6
 ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
+SPONZA_FRAMES, SPONZA_WINDOW = 8, 12  # phase 15: frames with the launches gated; frames per timed window
+BENCH_TIMEOUT = 600  # s: phase 16's bench suite
 EVENT_FRAMES = 4
 
 
@@ -547,7 +577,7 @@ def _tile_comb(planes, tz, rng):
     return torch.from_numpy(comb)
 
 
-def seeded_tiles(seed, dev):
+def seeded_tiles(seed, dev, k2=TILE_SEED_K2):
     """Tile raster inputs made from a seed with NumPy, (entries (T, K2), comb,
     counts, near_r, width, height) on `dev` at TILE_SEED_W × TILE_SEED_H (not a
     multiple of the 64-px tile): planar triangles with vertices snapped to pixel
@@ -559,7 +589,7 @@ def seeded_tiles(seed, dev):
 
     from oxylus_tpu_torch.ops import raster3d as tr
 
-    w, h, n_rows, k2 = TILE_SEED_W, TILE_SEED_H, TILE_SEED_ROWS, TILE_SEED_K2
+    w, h, n_rows = TILE_SEED_W, TILE_SEED_H, TILE_SEED_ROWS
     rng = np.random.default_rng(seed)
     kinds = ["flat", "snapped", "sliver", "corner", "wd_cross", "perspective", "tie", "dead", "cover"]
     planes, tz = [], []
@@ -1089,10 +1119,12 @@ def main() -> int:
             break
     from oxylus_tpu_torch import probes
 
-    raster_rows = []
-    for args in raster_calls:
+    def raster_vs_plain(label, args):
+        """One captured tile raster call: the kernel exactly against its plain
+        version, timed (events and a CUDA graph) beside the plain version and
+        the bound from this input's work. Returns (max abs err, graph ms,
+        plain ms, bound)."""
         entries, comb, counts, near_r, w, h = args
-        label = f"5: raster K2={entries.shape[1]}"
         got = raster3d.run_tiles(*args)
         want_d, want_v, want_g, rounds_run, covered = raster3d._raster_tiles_plain(*args)
         torch.cuda.synchronize()
@@ -1131,7 +1163,9 @@ def main() -> int:
         check(d_bits == 0 and d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0,
               f"{label}: kernel != plain")
         check(work["evaluated"] < real * 4096, f"{label}: the reject left every (entry, pixel) pair")
-        raster_rows.append((max(d_err, g_err), graph_ms, plain, bd))
+        return max(d_err, g_err), graph_ms, plain, bd
+
+    raster_rows = [raster_vs_plain(f"5: raster K2={args[0].shape[1]}", args) for args in raster_calls]
     check(len(raster_rows) >= 1, "no raster call captured")
     # Seeded inputs the captured frame may lack: slivers on sub-tile borders, single-corner covers,
     # ties, missing entries, early-outs (`seeded_tiles`), and a tile whose tile-wide early-out
@@ -1184,6 +1218,28 @@ def main() -> int:
               f"5: HiZ kernel != plain at {h_s}x{w_s}")
     print(f"[5] HiZ on seeded depths at {HIZ_SEEDED_SHAPES}: every level equal to the plain version", flush=True)
     check(hiz_err == 0, "HiZ kernel != plain")
+    # Two pyramids built at once on two streams (ROADMAP C4): each stream
+    # counts into its own finished-block counter, so both are exact and every
+    # counter is left zeroed
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    pair = [torch.rand(HIZ_STREAM_SHAPE, generator=gen, device=dev) for _ in range(2)]
+    want_pair = [hiz_ops.hiz_reference(d) for d in pair]
+    torch.cuda.synchronize()
+    bad = 0
+    for _ in range(HIZ_STREAM_ROUNDS):
+        outs = []
+        for st, d in zip(streams, pair):
+            with torch.cuda.stream(st):
+                outs.append(hiz_ops.build_hiz(d))
+        torch.cuda.synchronize()
+        bad += sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                   for out, want in zip(outs, want_pair) for g, r in zip(out, want))
+    counters = [int(c.item()) for c in hiz_ops._COUNTERS.values()]
+    print(f"[5] HiZ on two streams at once ({HIZ_STREAM_ROUNDS} rounds of two {HIZ_STREAM_SHAPE} depths): "
+          f"{bad} bits differ from the plain version; {len(hiz_ops._COUNTERS)} counters kept (by card and "
+          f"stream), values {counters}", flush=True)
+    check(bad == 0, "HiZ on two streams differs from the plain version")
+    check(len(hiz_ops._COUNTERS) >= 3 and not any(counters), "HiZ counters not kept per stream, or left nonzero")
 
     cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
     render = lambda: runner.renderer3d.render(
@@ -1955,6 +2011,150 @@ def main() -> int:
     # ---- 14. the Hopper probes (kernel table row 9) -----------------------------
     probe_rows = probe_phase(dev, card, every_mod)
 
+    # ---- 15. config 4: the Sponza-class atrium --------------------------------------
+    import PIL
+
+    from oxylus_tpu_torch.sponza import build_sponza_scene
+
+    del runner, scene
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scene, runner_kw, info = build_sponza_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    gs = runner.gscene
+    masked_inst = torch.isin(gs.inst_material, torch.tensor(info["masked_materials"], device=dev)) & gs.inst_valid
+    lod0 = gs.mesh_lod_meshlet_count[gs.inst_mesh.long(), 0]
+    print(f"[15] PIL {PIL.__version__}; atrium {info['summary']}; host seconds: generate "
+          f"{info['seconds']['generate']:.2f}, load {info['seconds']['load']:.2f}, bake "
+          f"{info['seconds']['bake']:.2f}, prepass {info['seconds']['prepass']:.2f}; prepass {info['prepass']}; "
+          f"atlas {info['atlas']}²; masked materials {info['masked_materials']} on {int(masked_inst.sum())} "
+          f"instances, {int(lod0[masked_inst].sum())} masked meshlets at LOD 0; runner built in "
+          f"{time.perf_counter() - t0:.2f} s; texturing {runner._texture_features}, masked pass "
+          f"{runner._has_alpha_mask}; {runner.renderer3d.spec}", flush=True)
+    check(runner._textured and runner._has_alpha_mask and int(masked_inst.sum()) > 0,
+          "the atrium runner leaves texturing or the masked pass out")
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    tiles_k2, frame_marks, stats = [], [], []
+    with capture(raster3d, "run_tiles", tiles_k2, keep=lambda args: args[0].shape[1]):
+        for i in range(MAIN_WARMUP + SPONZA_FRAMES):
+            frame_marks.append((len(tiles_k2), hiz_ops.LAUNCHES))
+            image = runner.step()
+            stats.append(runner.frame_stats)
+        torch.cuda.synchronize()
+    frame_marks.append((len(tiles_k2), hiz_ops.LAUNCHES))
+    path_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    per_frame = [(tiles_k2[a[0]:b[0]], b[1] - a[1]) for a, b in zip(frame_marks, frame_marks[1:])]
+    gates = [{k: int(v) for k, v in st.items()} for st in stats]
+    print(f"[15] {MAIN_WARMUP} warm-up and {SPONZA_FRAMES} frames: kernel launches {path_launches}; per frame "
+          f"(tile raster K2s, HiZ launches) {per_frame}; overflow after the warm-up "
+          f"{[(g['expand_overflow'], g['bin_overflow']) for g in gates[MAIN_WARMUP - 1:]]}", flush=True)
+    for g in gates[MAIN_WARMUP - 1:]:
+        check(g["expand_overflow"] == 0 and g["bin_overflow"] == 0, f"sponza frame dropped work: {g}")
+    for ks, n_hiz in per_frame[MAIN_WARMUP:]:
+        check(len(ks) >= 2 and ks[0] == 256 and ks[-1] == 128 and n_hiz >= 1, f"a sponza frame missed the opaque "
+              f"or masked raster pass or HiZ: K2s {ks}, HiZ launches {n_hiz}")
+    # the static atrium's shadow pages render while its residency fills (the
+    # warm-up) and stay cached after: the depth raster is counted over all
+    # frames here and launched again below by the frame without a page cache
+    check(path_launches[raster_depth.__name__] > 0, "the sponza frames never launched the depth raster")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3), f"sponza image shape {tuple(image.shape)}")
+    print(f"[15] image range [{image.min().item()}, {image.max().item()}], mean {image.mean().item():.5f}", flush=True)
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0
+          and image.max().item() <= 1.0 + FXAA_RANGE_ROUNDING, "sponza image not finite or outside [0, 1]")
+    # one frame with the kernels and with the plain versions, from a shared
+    # state and carry, the shadow page cache left out so every level renders
+    prev = {k: v for k, v in runner.carry.items() if k != "shadow_cache"}
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    sponza_calls = []
+    render = lambda: runner.renderer3d.render(
+        runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+        prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows, textured=runner._textured,
+        texture_features=runner._texture_features, alpha_masked=runner._has_alpha_mask,
+        static_lights=runner._static_lights,
+    )
+    d0 = raster_depth.LAUNCHES
+    sponza_depth, sponza_hiz = [], []
+    with capture(raster3d, "run_tiles", sponza_calls), capture(raster_depth, "rasterize_depth", sponza_depth), \
+            capture(hiz_ops, "build_hiz", sponza_hiz):
+        ctx_k = render()
+    rendered = raster_depth.LAUNCHES - d0
+    with plain_on_card(raster3d, hiz_ops, raster_depth):
+        ctx_p = render()
+    img_k, img_p = ctx_k["final"], ctx_p["final"]
+    print(f"[15] one sponza frame rendered with the kernels ({rendered} depth raster launches, tile raster K2s "
+          f"{[a[0].shape[1] for a in sponza_calls]}) and with the plain versions from a shared state and carry: "
+          f"PSNR {psnr(img_k, img_p)} dB, identical {bool(torch.equal(img_k, img_p))}", flush=True)
+    check(rendered > 0, "the sponza comparison frame rendered no shadow level")
+    check(torch.equal(img_k, img_p), "sponza: kernel and plain frames differ")
+    # the frame's tile raster passes (opaque early, late, masked) held exactly
+    # and timed; then seeded masked-pass inputs (K2 128)
+    names = ["opaque early", "opaque late", "masked"] if len(sponza_calls) == 3 else ["opaque", "masked"]
+    sponza_rows = [raster_vs_plain(f"15: sponza {n} pass K2={a[0].shape[1]}", a) for n, a in zip(names, sponza_calls)]
+    check(sponza_calls[-1][0].shape[1] == 128, "the sponza masked pass is not K2 128")
+    # each pass's launches per gated frame: a frame's first tile raster call is
+    # its opaque (early) pass, its last the masked pass, any between the late pass
+    gated = per_frame[MAIN_WARMUP:]
+    pass_launches = {"opaque": sum(min(len(ks), 1) for ks, _ in gated), "masked": sum(len(ks) >= 2 for ks, _ in gated),
+                     "opaque late": sum(max(len(ks) - 2, 0) for ks, _ in gated)}
+    pass_launches["opaque early"] = pass_launches["opaque"]
+    sp_hiz_per_frame = sum(n for _, n in gated) / len(gated)
+    print(f"[15] launches per frame over the {len(gated)} frames after the warm-up: tile raster "
+          f"{ {k: v / len(gated) for k, v in pass_launches.items() if k != 'opaque early'} }, HiZ "
+          f"{sp_hiz_per_frame}", flush=True)
+    for seed in range(3):
+        args = seeded_tiles(100 + seed, dev, k2=128)
+        got, want = raster3d.run_tiles(*args), raster3d.rasterize_tiles_reference(*args)
+        diff = sum(int((g.view(dt) != r.view(dt)).sum())
+                   for g, r, dt in zip(got, want, (torch.int32, torch.int32, torch.int16)))
+        check(diff == 0, f"15: tile raster on seeded masked-pass input {seed}: {diff} bits differ")
+    print(f"[15] tile raster on 3 seeded masked-pass inputs (K2 = 128): depth, vid and G-buffer bits equal to the "
+          f"plain version", flush=True)
+    # the depth raster's levels and HiZ at the atrium's shapes, held exactly and timed with their bounds
+    sp_depth = [depth_vs_plain(f"15: sponza depth raster, level {i}", args) for i, args in enumerate(sponza_depth)]
+    sp_depth_bound = bound(sum(r[3] for r in sp_depth), sum(r[5] for r in sp_depth))
+    print(f"[15] sponza depth raster, the frame's {len(sp_depth)} levels: kernel {sum(r[1] for r in sp_depth):.4f} "
+          f"ms, plain {sum(r[2] for r in sp_depth):.2f} ms, bound on the covered triples {sp_depth_bound[0]:.5f} ms "
+          f"({sp_depth_bound[1]}) ({card})", flush=True)
+    sp_d = sponza_hiz[0][0]
+    got, want = hiz_ops.build_hiz(sp_d), hiz_ops.hiz_reference(sp_d)
+    sp_hiz_bits = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum()) for g, r in zip(got, want))
+    sp_hiz_err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+    sp_hiz_ms = probes.time_us(lambda: hiz_ops.build_hiz(sp_d), dev, GRAPH_REPS)[0] * 1e-3
+    sp_hiz_plain = cuda_ms(lambda: hiz_ops.hiz_reference(sp_d), 10)
+    sp_hiz_bound = bound((sp_d.numel() + got[0].numel() + sum(m.numel() for m in got[1:])) * 4,
+                         3 * sum(m.numel() for m in got[1:]))
+    print(f"[15] sponza HiZ of {tuple(sp_d.shape)}: bit mismatches {sp_hiz_bits}, max abs err {sp_hiz_err}; kernel {sp_hiz_ms:.4f} ms (CUDA "
+          f"graph of {GRAPH_REPS}), plain {sp_hiz_plain:.3f} ms, bound {sp_hiz_bound[0]:.4f} ms ({sp_hiz_bound[1]}) "
+          f"({card})", flush=True)
+    check(sp_hiz_bits == 0, "sponza HiZ kernel != plain")
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(SPONZA_WINDOW)
+        rates.append(SPONZA_WINDOW / (time.perf_counter() - t0))
+    print(f"[15] sponza frames/s over 3 windows of {SPONZA_WINDOW}: {sorted(rates)} ({card})", flush=True)
+    del runner, scene, runner_kw, ctx_k, ctx_p, prev
+    torch.cuda.empty_cache()
+
+    # ---- 16. the port's bench suite, as `python -m oxylus_tpu_torch.bench` runs it --------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "oxylus_tpu_torch.bench"], capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    bench_s = time.perf_counter() - t0
+    cells = [ln for ln in proc.stderr.splitlines() if ln.startswith("{")]
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("{") or "rates" in ln or "binning" in ln or "sponza" in ln or "gate" in ln:
+            print(f"[16] {ln}", flush=True)
+    last = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+    suite = last.get("suite", {})
+    print(f"[16] bench suite exit {proc.returncode} in {bench_s:.1f} s; weakest cell {last.get('metric')} "
+          f"{last.get('value')} ({card})", flush=True)
+    check(proc.returncode == 0, f"the bench suite failed: {proc.stderr[-2000:]}")
+    check(sorted(suite) == sorted(bench.CELLS) and all(c["value"] > 0 for c in suite.values()) and len(cells) == 6,
+          f"the bench suite's cells: {suite}")
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1965,14 +2165,25 @@ def main() -> int:
         row("compact_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_compact.cu",
             "oxylus_tpu/physics/megakernel_compact.py:75", mc, compact_err, compact_ms, compact_plain_ms,
             compact_bound),
-        row("raster_tiles", "oxylus_tpu_torch/ops/csrc/raster_tiles.cu", "oxylus_tpu/ops/raster3d.py:936",
-            raster3d, max(r[0] for r in raster_rows), early[1], early[2], early[3]),
-        row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
-            hiz_graph_ms, hiz_plain_ms, hiz_bound),
+        dict(row("raster_tiles", "oxylus_tpu_torch/ops/csrc/raster_tiles.cu", "oxylus_tpu/ops/raster3d.py:936",
+                 raster3d, max(r[0] for r in raster_rows + sponza_rows), early[1], early[2], early[3]),
+             sponza_passes=[{"pass": n, "k2": a[0].shape[1],
+                             "launches_per_frame": pass_launches[n] / len(gated), "max_abs_err": r[0], "ms": r[1],
+                             "plain_ms": r[2],
+                             "bound_ms": r[3][0], "bound_by": r[3][1]}
+                            for n, a, r in zip(names, sponza_calls, sponza_rows)]),
+        dict(row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
+                 hiz_graph_ms, hiz_plain_ms, hiz_bound),
+             sponza={"launches_per_frame": sp_hiz_per_frame, "max_abs_err": sp_hiz_err, "ms": sp_hiz_ms,
+                     "plain_ms": sp_hiz_plain,
+                     "bound_ms": sp_hiz_bound[0], "bound_by": sp_hiz_bound[1]}),
         row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
             "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
-        row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",
-            raster_depth, depth_err, depth_ms, depth_plain_ms, depth_bound),
+        dict(row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",
+                 raster_depth, max([depth_err] + [r[0] for r in sp_depth]), depth_ms, depth_plain_ms, depth_bound),
+             sponza={"levels": len(sp_depth), "ms": sum(r[1] for r in sp_depth),
+                     "plain_ms": sum(r[2] for r in sp_depth), "bound_ms": sp_depth_bound[0],
+                     "bound_by": sp_depth_bound[1]}),
         row("blend2d", "oxylus_tpu_torch/ops/csrc/blend2d.cu", "oxylus_tpu/ops/raster2d_pallas.py:41", blend2d,
             max(err10, err11), blend_ms, blend_plain_ms, blend_bound),
         row("banded_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_banded.cu",

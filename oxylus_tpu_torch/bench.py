@@ -1,25 +1,48 @@
-"""The physics cells of the repo's `bench.py`, on the port.
+"""The six cells of the repo's `bench.py`, on the port.
 
-    python -m oxylus_tpu_torch.bench [physics|physics10k]
+    python -m oxylus_tpu_torch.bench [physics|physics10k|frame2d|frame3d|sponza|frame5 ...]
 
-prints one JSON line per cell (both when no cell is named): the metric, its
-value in rigid-body steps per second, the unit and `vs_baseline` against the
-repo's target of 10 M body-steps/s. Runs on the card; each cell's integrity
-gates raise when they fail, as `bench.py`'s asserts do.
+A named cell prints its JSON line on stdout (the metric, its value, the unit
+and `vs_baseline`); its integrity gates raise when they fail, as `bench.py`'s
+asserts do. With no cell named the whole suite runs in `bench.py`'s order,
+each cell's line goes to stderr as it lands (a cell that raises reports value
+0 and its error), and the one stdout line is the weakest cell with `suite`,
+every cell's value and `vs_baseline`; the exit code is nonzero when a cell
+failed. Runs on the card.
 
+The physics cells (rigid-body steps per second against the repo's 10 M target):
 - `physics` (`bench.py::_run_physics`): the 1022-box flagship (capacity 1024),
   60-substep calls, 2 warm-up calls, then the median of 3 timed windows of 16
   calls, each ending in a sync.
 - `physics10k` (`bench.py::_run_physics10k`): 10 000 boxes in 10 piles at
   capacity 10112, 8 calls per window.
 
-The environment chooses the route as in `bench.py`: `OX_BENCH_KERNEL`
+The environment chooses the physics route as in `bench.py`: `OX_BENCH_KERNEL`
 (`compact`, the default; `banded`; `dense`), `OX_BENCH_MEGA=0` (60 calls of
 `physics_substep` per call instead of one kernel call), `OX_BENCH_GE` (the
 compact and banded kernels' geometry stride, default 2), `OX_BENCH_SLEEP=1`
 (sleeping on) and `OX_BENCH_RSLOTS` (the compact kernel's neighbour slots).
 `OX_BENCH_WORLDS` other than 1, the JAX bench's vmapped batch of worlds, is
 refused: stepping worlds side by side is not ported.
+
+The frame cells (frames per second at 1920×1080 against 60 frames/s): 2
+warm-up frames, then the median of 3 timed windows of `SceneRunner.step`,
+each ending in a sync (`bench.py::_median_fps`), on the port's builders of
+the JAX bench's scenes:
+- `frame2d` (config 2, `frame2d.py`): windows of 30 frames; the 2D binning's
+  (tile, record) pairs past 64 a tile are printed, ungated, as the JAX
+  package drops them too;
+- `frame3d` (config 3, `frame3d.py`): windows of 20;
+- `sponza` (config 4, `sponza.py`): windows of 12; every frame from the last
+  warm-up frame on must drop nothing in the meshlet expansion
+  (`expand_overflow`) or the tile binning (`bin_overflow`);
+- `frame5` (config 5, `frame5.py`, the bench's K2 192 and 32 groups): windows
+  of 12; the worst frame's binning drop (the pairs past the binning
+  capacities, as a share of the frame's pairs binned and dropped) is printed
+  and gated at 5 %.
+The frame2d and frame5 runners count their binned pairs
+(`SceneRunner(binning_stats=True)`: a sum per pass on the card, read after
+the clock stops); the other cells' frames do not.
 """
 
 from __future__ import annotations
@@ -34,12 +57,17 @@ import torch
 
 from .device import resolve_device
 from .flagship import build_flagship
+from .frame2d import build_frame2d_scene
+from .frame3d import build_frame3d_scene
+from .frame5 import build_frame5_scene
 from .physics import megakernel, megakernel_banded, megakernel_compact
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
 from .physics.step import physics_substep
 
 TARGET = 10e6  # body-steps/s: the repo's physics target (BASELINE.json)
+FRAME_TARGET = 60.0  # frames/s: the frame cells' baseline
+BIN_DROP_GATE = 0.05  # frame5: the share of a frame's binned pairs its binning capacities may drop
 DROP_GATE = 0.002  # the compact route's dropped pairs over the whole horizon's pair events
 KERNELS = ("compact", "banded", "dense")
 
@@ -183,16 +211,160 @@ def run_physics10k(device=None) -> dict:
     return _cell(r["rate"], f"rigid-body-steps/sec (rubble field, {r['worlds']}x{r['n_bodies']} bodies, 60Hz substeps)")
 
 
-CELLS = {"physics": run_physics, "physics10k": run_physics10k}
+def _frame_windows(runner, frames: int, warmup: int = 2, windows: int = 3) -> tuple[float, list, list]:
+    """`warmup` frames, then `windows` timed windows of `frames` frames, each
+    ending in a sync. Returns the median window's frame rate, the warm-up
+    frames' and the timed frames' `runner.frame_stats` (device tensors, read
+    after the clock stops)."""
+    log = functools.partial(print, file=sys.stderr, flush=True)
+    warm = []
+    for _ in range(warmup):
+        runner.step()
+        warm.append(runner.frame_stats)
+    _sync(runner.device)
+    rates, timed = [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            runner.step()
+            timed.append(runner.frame_stats)
+        _sync(runner.device)
+        rates.append(frames / (time.perf_counter() - t0))
+    rates.sort()
+    log(f"frame segment rates: {[f'{r:.1f}' for r in rates]}")
+    return rates[len(rates) // 2], warm, timed
+
+
+def _read_stats(stats: list, keys: tuple) -> list[dict]:
+    """Each frame's stats as host ints, in one read."""
+    if not stats:
+        return []
+    flat = torch.stack([st[k].reshape(()).to(torch.int64) for st in stats for k in keys]).tolist()
+    return [dict(zip(keys, flat[i : i + len(keys)])) for i in range(0, len(flat), len(keys))]
+
+
+def _drop_share(st: dict) -> float:
+    return st["bin_overflow"] / max(st["bin_pairs"] + st["bin_overflow"], 1)
+
+
+def bench_frame_2d(width=1920, height=1080, frames=30, warmup=2, device=None) -> dict:
+    """Frame-steps/s on config 2 (`bench.bench_frame_2d`)."""
+    from .runtime import SceneRunner
+
+    scene, runner_kw = build_frame2d_scene(width, height, device=resolve_device(device))
+    runner = SceneRunner(scene, binning_stats=True, **runner_kw)
+    rate, warm, timed = _frame_windows(runner, frames, warmup)
+    st = _read_stats(timed, ("tile_dropped", "tile_pairs"))
+    worst = max(st, key=lambda d: d["tile_dropped"])
+    print(f"frame2d binning at K=64 (ungated): worst frame dropped {worst['tile_dropped']} of "
+          f"{worst['tile_pairs']} (tile, record) pairs; last frame {st[-1]['tile_dropped']} of "
+          f"{st[-1]['tile_pairs']}", file=sys.stderr, flush=True)
+    return {"rate": rate, "tile_dropped": worst["tile_dropped"], "tile_pairs": worst["tile_pairs"]}
+
+
+def bench_frame_3d(width=1920, height=1080, frames=20, warmup=2, device=None, n_objects=200) -> dict:
+    """Frame-steps/s on config 3 (`bench.bench_frame_3d`)."""
+    from .runtime import SceneRunner
+
+    scene, runner_kw = build_frame3d_scene(width, height, n_objects, device=resolve_device(device))
+    rate, _warm, _timed = _frame_windows(SceneRunner(scene, **runner_kw), frames, warmup)
+    return {"rate": rate}
+
+
+def bench_frame_5(width=1920, height=1080, frames=12, warmup=2, device=None, n_objects=150, n_boxes=255) -> dict:
+    """Frame-steps/s on config 5 (`bench.bench_frame_5`), with the gate on
+    every frame's binning drop share."""
+    from .runtime import SceneRunner
+
+    scene, runner_kw = build_frame5_scene(width, height, n_objects, n_boxes, device=resolve_device(device))
+    rate, warm, timed = _frame_windows(SceneRunner(scene, binning_stats=True, **runner_kw), frames, warmup)
+    st = _read_stats(warm + timed, ("bin_overflow", "bin_pairs", "expand_overflow"))
+    worst = max(st, key=_drop_share)
+    share = _drop_share(worst)
+    print(f"frame5 binning drops: worst frame {100 * share:.3f} % ({worst['bin_overflow']} of "
+          f"{worst['bin_overflow'] + worst['bin_pairs']} pairs; gate 5 %); expand_overflow max "
+          f"{max(d['expand_overflow'] for d in st)}", file=sys.stderr, flush=True)
+    _gate(share <= BIN_DROP_GATE, f"frame5 binning dropped {100 * share:.3f} % of a frame's pairs")
+    return {"rate": rate, "drop_share": share}
+
+
+def bench_frame_sponza(width=1920, height=1080, frames=12, warmup=2, device=None) -> dict:
+    """Frame-steps/s on config 4 (`bench.bench_frame_sponza`), with the
+    overflow gates on the last warm-up frame and every timed frame."""
+    from .runtime import SceneRunner
+    from .sponza import build_sponza_scene
+
+    scene, runner_kw, info = build_sponza_scene(width, height, device=resolve_device(device))
+    print(f"sponza: {info['summary']}; host seconds {info['seconds']}; prepass {info['prepass']}",
+          file=sys.stderr, flush=True)
+    rate, warm, timed = _frame_windows(SceneRunner(scene, **runner_kw), frames, warmup)
+    st = _read_stats(warm[-1:] + timed, ("expand_overflow", "bin_overflow"))
+    for key in ("expand_overflow", "bin_overflow"):
+        n = max(d[key] for d in st)
+        _gate(n == 0, f"sponza frame dropped work ({key}={n})")
+    return {"rate": rate, "info": info}
+
+
+def _frame_cell(fps: float, metric: str) -> dict:
+    return {"metric": metric, "value": round(fps, 2), "unit": "frames/s",
+            "vs_baseline": round(fps / FRAME_TARGET, 4)}
+
+
+def run_frame2d(device=None) -> dict:
+    return _frame_cell(bench_frame_2d(device=device)["rate"], "frame-steps/sec (2D tilemap + animated sprites, 1080p)")
+
+
+def run_frame3d(device=None) -> dict:
+    return _frame_cell(bench_frame_3d(device=device)["rate"],
+                       "frame-steps/sec (meshlet scene + sky/shadows/post, 1080p)")
+
+
+def run_frame5(device=None) -> dict:
+    return _frame_cell(bench_frame_5(device=device)["rate"],
+                       "frame-steps/sec (full frame: visbuffer+GTAO+SSR+shadows+physics, 1080p)")
+
+
+def run_sponza(device=None) -> dict:
+    return _frame_cell(bench_frame_sponza(device=device)["rate"],
+                       "frame-steps/sec (Sponza-class atrium: 121 meshes/1M tris/24 textured materials via GLTF "
+                       "import + native bake, 1080p)")
+
+
+CELLS = {"physics": run_physics, "physics10k": run_physics10k, "frame2d": run_frame2d, "frame3d": run_frame3d,
+         "sponza": run_sponza, "frame5": run_frame5}
+
+
+def run_suite() -> tuple[dict, bool]:
+    """Every cell in order, each line on stderr as it lands; a cell that
+    raises reports value 0. Returns the weakest cell with `suite` added, and
+    whether every cell passed."""
+    results, ok = {}, True
+    for name, fn in CELLS.items():
+        try:
+            r = fn()
+        except Exception as e:  # one failed cell must not hide the others
+            ok = False
+            r = {"metric": f"{name} (FAILED: {type(e).__name__}: {e})", "value": 0.0, "unit": "-",
+                 "vs_baseline": 0.0}
+        print(json.dumps(r), file=sys.stderr, flush=True)
+        results[name] = r
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    weakest = dict(min(results.values(), key=lambda r: r["vs_baseline"]))
+    weakest["suite"] = {name: {"value": r["value"], "vs_baseline": r["vs_baseline"]} for name, r in results.items()}
+    return weakest, ok
 
 
 def main(argv: list[str]) -> int:
-    names = argv or list(CELLS)
-    for name in names:
+    for name in argv:
         if name not in CELLS:
             print(f"unknown cell {name!r}; cells: {', '.join(CELLS)}", file=sys.stderr)
             return 2
-    for name in names:
+    if not argv:
+        weakest, ok = run_suite()
+        print(json.dumps(weakest), flush=True)
+        return 0 if ok else 1
+    for name in argv:
         print(json.dumps(CELLS[name]()), flush=True)
     return 0
 

@@ -16,8 +16,8 @@ CUDA tensors the kernel `csrc/hiz.cu` (counted in `LAUNCHES`), or it raises.
 Min is exact, so kernel and plain agree exactly. The kernel is one launch: a
 CTA per BLOCK² block of the padded base reads the depth, writes the base and
 its block's first BLOCK_LEVELS levels, and the last CTA to finish (a counter
-the wrapper keeps per card) walks the tail; `hiz_block_levels` is a plain
-model of that split for the tests.
+the wrapper keeps per card and stream) walks the tail; `hiz_block_levels` is
+a plain model of that split for the tests.
 """
 
 from __future__ import annotations
@@ -88,7 +88,28 @@ def hiz_block_levels(depth: Tensor, max_mips: int = MAX_MIPS) -> list[Tensor]:
     return mips
 
 
-_COUNTERS: dict[torch.device, Tensor] = {}  # per card: the kernel's finished-block counter, left zeroed
+# The kernel's finished-block counter, one per (card, stream), each left zeroed
+# by the launch that used it. The last CTA of a launch is the one whose
+# atomicAdd returns blocks - 1, so two launches that counted into one counter
+# at the same time would pick the wrong CTA (or none) to walk the tail and
+# leave the counter nonzero for every later call. Launches on one stream run
+# one after another; keying by the stream keeps launches on two streams apart
+# and adds nothing to a launch (a per-call cudaMemsetAsync would add a node).
+# A CUDA graph that captured a launch keeps the pointer of its capture
+# stream's counter, whatever stream it is later replayed on. A replay is
+# correct while no other launch that uses that counter runs at the same time:
+# neither an eager `build_hiz` on the capture stream nor another replay of a
+# graph captured on it. `time_redesigns.py` captures HiZ and replays its graph
+# on one stream with nothing else in flight, so its replays are correct.
+_COUNTERS: dict[tuple[torch.device, int], Tensor] = {}
+
+
+def _counter(dev: torch.device, stream: int) -> Tensor:
+    """The zeroed counter of (`dev`, raw stream handle `stream`), made at its first use."""
+    key = (dev, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
 
 
 def _hiz_cuda(depth: Tensor, max_mips: int) -> list[Tensor]:
@@ -101,14 +122,14 @@ def _hiz_cuda(depth: Tensor, max_mips: int) -> list[Tensor]:
         raise ValueError("depth must be a 2-D float32 tensor")
     depth = depth.contiguous()
     dev = depth.device
-    if dev not in _COUNTERS:
-        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counter = _counter(dev, stream)
     shapes = mip_shapes(*depth.shape, max_mips)
     (hp, wp), sizes = shapes[0], [hh * ww for hh, ww in shapes[1:]]
     base = torch.empty((hp, wp), dtype=torch.float32, device=dev)
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     err = lib.hiz_build(depth.data_ptr(), depth.shape[0], depth.shape[1], hp, wp, len(shapes), base.data_ptr(),
-                        flat.data_ptr(), _COUNTERS[dev].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                        flat.data_ptr(), counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hiz_build launch failed: {lib.kernel_error_string(err).decode()}")
     return [base] + [m.view(s) for m, s in zip(torch.split(flat, sizes), shapes[1:])]

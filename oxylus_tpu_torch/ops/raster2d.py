@@ -89,6 +89,7 @@ def rasterize_sprites(
     height: int,
     k_per_tile: int = 64,
     scene_depth: Tensor | None = None,
+    stats: dict | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Returns (color (H, W, 4) f32 premultiplied-over result, visbuffer (H, W) i32).
     The material fields are resolved per sprite, so the JAX signature's
@@ -96,7 +97,11 @@ def rasterize_sprites(
 
     `scene_depth` (H, W) f32 reverse-Z: when given, each sprite is
     depth-tested (no write) against it, as the reference's alpha pass draws
-    into the scene depth buffer with a greater-or-equal test and writes off."""
+    into the scene depth buffer with a greater-or-equal test and writes off.
+
+    `stats`, when given, receives the binning's (tile, record) pairs as 0-d
+    device tensors: "tile_pairs" (every overlap of the visible prefix) and
+    "tile_dropped" (those past `k_per_tile` a tile)."""
     s = world.shape[0]
     dev = world.device
     n_tiles = ((width + TILE - 1) // TILE) * ((height + TILE - 1) // TILE)
@@ -163,6 +168,9 @@ def rasterize_sprites(
     ranks0 = torch.arange(k_per_tile, dtype=torch.int32, device=dev)
     tile_list = torch.searchsorted(cum, ranks0.expand(n_tiles, k_per_tile).contiguous(), right=True).to(torch.int32)
     tile_list = torch.where(cum[:, -1:] > ranks0[None, :], tile_list, -1)  # (T, K)
+    if stats is not None:
+        stats["tile_pairs"] = cum[:, -1].sum()
+        stats["tile_dropped"] = torch.clamp(cum[:, -1] - k_per_tile, min=0).sum()
     if s > MAX_VISIBLE:
         tile_list = torch.where(tile_list < MAX_VISIBLE, tile_list, -1)
 

@@ -1,11 +1,13 @@
 """Where the time goes on the card, for the fused simulate-and-render 3D frame
 and for the 2D frame.
 
-    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|3|2] [--raster-path tile|group]
+    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|4|3|2] [--raster-path tile|group]
 
 Builds the full config-5 scene (`frame5.build_frame5_scene`, 1920×1080, 150
 objects, 255 boxes; atmosphere, clipmap shadows, GTAO, SSR), with
-`--config 3` the config-3 scene (`frame3d.build_frame3d_scene`, 200 objects,
+`--config 4` the Sponza-class atrium (`sponza.build_sponza_scene`: 307
+instances, textured and alpha-masked materials; atmosphere, clipmap shadows,
+GTAO), with `--config 3` the config-3 scene (`frame3d.build_frame3d_scene`, 200 objects,
 8 point lights, 3 emitters; atmosphere, clipmap shadows, GTAO and the
 Forward2D particle layer), or with `--config 2` the 2D scene
 (`frame2d.build_frame2d_scene`, 512 sprites, 2 emitters); with
@@ -25,8 +27,10 @@ frames and FRAMES untraced frames, then traces FRAMES more with
 - `stage <name>`: per frame, the device time of the kernels each stage
   launched, the stage's span on the device's timeline and its host time, by
   `torch.profiler.record_function` ranges put around the stage functions for
-  the traced frames only. In 3D: physics, the raster passes (on the group
-  route also its compaction and binning), HiZ, sky, the
+  the traced frames only. In 3D: physics, the tile binning, the shared slot
+  rows and the slot tables, each tile raster call by its K2 (on the group
+  route its compaction, binning and raster), HiZ, the masked pass's alpha
+  cutoff and merge, the textured G-buffer, sky, the
   shadow maps with each clipmap level and tier, resolve, contact shadows,
   GTAO, PBR, SSR, aerial perspective, the particle layer, post. In 2D: the
   frame step, the sprite and particle assembly around the raster, and inside
@@ -52,6 +56,7 @@ from . import runtime
 from .frame2d import build_frame2d_scene
 from .frame3d import build_frame3d_scene
 from .frame5 import build_frame5_scene
+from .sponza import build_sponza_scene
 from .ops import blend2d, hiz, raster2d, raster3d, raster_depth, raster_groups
 from .physics import megakernel_compact as mc
 from .profile_flagship import _device_events, _launches, _table
@@ -66,7 +71,7 @@ OWN_KERNELS = {"compact": "k_", "raster": "raster_tiles_kernel", "hiz": "hiz_", 
 DEPTH_KERNELS_PER_CALL = 2
 # the stages that launch each own kernel, the enclosing ones too (the depth
 # raster: the clipmap level, per call)
-OWN_STAGES_3D = {"compact": ("physics (frame_step)",), "raster": ("tile raster",), "hiz": ("HiZ",),
+OWN_STAGES_3D = {"compact": ("physics (frame_step)",), "hiz": ("HiZ",),
                  "blend": ("particles (Forward2D)",), "group raster": ("group raster",)}
 OWN_STAGES_2D = {"blend": ("raster: blend (packing + kernel)", "raster (sort, binning, tiles, blend)",
                            "2D render (all)")}
@@ -74,11 +79,15 @@ OWN_STAGES_2D = {"blend": ("raster: blend (packing + kernel)", "raster (sort, bi
 # (module, function, stage) of every stage function wrapped in a range, per frame kind
 STAGES_3D = (
     (runtime, "frame_step", "physics (frame_step)"),
-    (raster3d, "run_tiles", "tile raster"),
+    (renderer3d, "bin_triangles_per_tile", "tile binning"),
+    (raster3d, "build_tile_comb", "tile comb (shared slot rows)"),
+    (raster3d, "pack_tile_blocks", "tile blocks (slot tables)"),
     (renderer3d, "compact_triangles", "group route: compact_triangles"),
     (renderer3d, "bin_meshlets_to_tiles", "group route: binning"),
     (raster_groups, "run_groups", "group raster"),
     (hiz, "build_hiz", "HiZ"),
+    (renderer3d, "alpha_mask_merge", "masked pass: alpha cutoff and merge"),
+    (renderer3d, "texture_gbuffer", "textured G-buffer"),
     (sky, "sky_view_lut", "sky: view LUT"),
     (sky, "sample_sky_view", "sky: background"),
     (sky, "sky_sh_ambient", "sky: SH ambient"),
@@ -105,7 +114,8 @@ STAGES_2D = (
     (raster2d, "resample_texture_tiles", "raster: texture tiles"),
     (raster2d, "blend_tiles", "raster: blend (packing + kernel)"),
 )
-BUILDERS = {5: build_frame5_scene, 3: build_frame3d_scene, 2: build_frame2d_scene}
+BUILDERS = {5: build_frame5_scene, 4: lambda w, h, device: build_sponza_scene(w, h, device=device)[:2],
+            3: build_frame3d_scene, 2: build_frame2d_scene}
 
 
 def kernel_name(event) -> str:
@@ -123,13 +133,16 @@ def _ranged(fn, name_of):
 
 
 @contextlib.contextmanager
-def stage_ranges(levels: list, stages=STAGES_3D):
+def stage_ranges(levels: list, stages=STAGES_3D, tiles: list | None = None):
     """Wrap the stage functions in `record_function` ranges. A clipmap level's
     range is named by its level (the light matrix is a row of the (L, 4, 4)
     stack) and its tier (its capacity); the names of the levels rendered are
-    appended to `levels` in call order (one depth raster launch each)."""
+    appended to `levels` in call order (one depth raster launch each). A tile
+    raster call's range is named by its K2, and appended to `tiles` (one
+    launch each)."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
     saved.append((shadows, "_render_level", shadows._render_level))
+    saved.append((raster3d, "run_tiles", raster3d.run_tiles))
     for (mod, name, stage), (_, _, fn) in zip(stages, saved):
         setattr(mod, name, _ranged(fn, lambda args, stage=stage: f"stage:{stage}"))
 
@@ -137,7 +150,14 @@ def stage_ranges(levels: list, stages=STAGES_3D):
         levels.append(f"shadows: level {args[2].storage_offset() // 16} ({'full' if args[4] >= 2048 else 'small'} tier)")
         return "stage:" + levels[-1]
 
-    shadows._render_level = _ranged(saved[-1][2], level)
+    def tile_call(args) -> str:
+        name = f"tile raster: K2 {args[0].shape[1]}"
+        if tiles is not None:
+            tiles.append(name)
+        return "stage:" + name
+
+    shadows._render_level = _ranged(saved[-2][2], level)
+    raster3d.run_tiles = _ranged(saved[-1][2], tile_call)
     try:
         yield
     finally:
@@ -145,11 +165,12 @@ def stage_ranges(levels: list, stages=STAGES_3D):
             setattr(mod, name, fn)
 
 
-def _own_kernels_by_stage(events: list, levels: list, own_stages=OWN_STAGES_3D) -> dict[str, float]:
+def _own_kernels_by_stage(events: list, levels: list, own_stages=OWN_STAGES_3D, tiles: list = ()) -> dict[str, float]:
     """Device µs of the port's own kernels by the stage that launched them. The
     profiler does not tie a kernel launched through the ctypes library to the
-    range around it, so they are assigned here: each kind to its stage, and the
-    depth raster's launches, in time order, to the levels rendered."""
+    range around it, so they are assigned here: each kind to its stage, the
+    depth raster's launches, in time order, to the levels rendered, and the
+    tile raster's to its calls (`tiles`)."""
     out: dict[str, float] = collections.defaultdict(float)
     by_kind = {k: sorted((e for e in events if kernel_name(e).startswith(p)),
                          key=lambda e: e.time_range.start) for k, p in OWN_KERNELS.items()}
@@ -161,6 +182,8 @@ def _own_kernels_by_stage(events: list, levels: list, own_stages=OWN_STAGES_3D) 
     for name, call in zip(levels, calls):
         out[name] += sum(e.time_range.elapsed_us() for e in call)
     out["shadows: clipmaps (all levels)"] += sum(e.time_range.elapsed_us() for e in by_kind["depth raster"])
+    for name, e in zip(tiles, by_kind["raster"]):
+        out[name] += e.time_range.elapsed_us()
     return out
 
 
@@ -217,7 +240,9 @@ def main() -> None:
     mods = (mc, raster3d, hiz, raster_depth, blend2d, raster_groups)
     counts0 = [m.LAUNCHES for m in mods]
     levels: list[str] = []
-    with stage_ranges(levels, STAGES_2D if two_d else STAGES_3D), torch.profiler.profile(activities=acts) as prof:
+    tiles: list[str] = []
+    with stage_ranges(levels, STAGES_2D if two_d else STAGES_3D, tiles), \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         runner.run(frames)
         traced = (time.perf_counter() - t0) / frames
@@ -231,8 +256,8 @@ def main() -> None:
             raise RuntimeError(f"{name}: {calls} wrapper calls per frame but no device kernel named {prefix}*")
         print(f"{tag} own kernel {name}: {sum(e.time_range.elapsed_us() for e in mine) / frames:.1f} us per frame "
               f"over {len(mine) / frames:.1f} device launches per frame")
-    _stage_table(prof, frames, _own_kernels_by_stage(events, levels, OWN_STAGES_2D if two_d else OWN_STAGES_3D),
-                 tag=tag)
+    _stage_table(prof, frames, _own_kernels_by_stage(events, levels, OWN_STAGES_2D if two_d else OWN_STAGES_3D,
+                                                     tiles), tag=tag)
     busy = _table(tag, events, top=25) / 1e3 / frames
     print(f"{tag} wall per frame: {untraced * 1e3:.3f} ms untraced, {traced * 1e3:.3f} ms traced "
           f"({frames} frames after {frames + 2})")

@@ -199,11 +199,13 @@ def _particle_material_fields(color: Tensor) -> dict:
 
 
 def render_2d_with_particles(state, camera: CameraMatrices, bindings: SpriteBatchBindings, *, width: int,
-                             height: int, k_per_tile: int = 64, billboard: bool = False) -> tuple[Tensor, Tensor]:
+                             height: int, k_per_tile: int = 64, billboard: bool = False,
+                             stats: dict | None = None) -> tuple[Tensor, Tensor]:
     """Sprites + particle billboards in one sorted, tiled pass (the reference
     feeds particles through the same RenderQueue2D,
     `RendererInstance.cpp:1336-1395`); particles sort after every sprite
-    layer. Returns (color (H, W, 4), visbuffer (H, W) i32)."""
+    layer. Returns (color (H, W, 4), visbuffer (H, W) i32); `stats` as
+    `rasterize_sprites` fills it."""
     n = state.alive.shape[0]
     dev = state.alive.device
     sp = state.comp["SpriteComponent"]
@@ -234,7 +236,7 @@ def render_2d_with_particles(state, camera: CameraMatrices, bindings: SpriteBatc
         flip_x=cat(sp["flip_x"], torch.zeros(m, dtype=torch.bool, device=dev)),
         valid=cat(sprite_mask, p_valid),
         view_proj=camera.view_projection, materials=combined, atlas=bindings.atlas,
-        width=width, height=height, k_per_tile=k_per_tile,
+        width=width, height=height, k_per_tile=k_per_tile, stats=stats,
     )
 
 

@@ -29,14 +29,33 @@ the aerial key moved since the carried frame), with occlusion one for
 whether anything was revealed, and with shadows one for the six clipmap
 levels' branches (`render/shadows.py`).
 
+Texturing and alpha masks (the tile route). With `textured`, a pixel
+resolves its 32-lane material row (`sampling.pack_material_tables`, stored as
+float16 as the JAX package's slot rows are) through its slot's material. The
+G-buffer is then textured from the packed
+bfloat16 atlas taps (`ops/sampling.py`): albedo and the tangent-space normal
+sampled at half resolution, metallic-roughness with its shared-rect occlusion
+and emissive at quarter resolution from the quarter-resolution vids, each
+rate upsampled linearly in one packed call, then the normal perturbed at full
+resolution; `texture_features` picks the kinds. With `alpha_masked`, the
+opaque passes leave out the meshlets whose material has FLAG_ALPHA_MASK, and
+those raster in their own pass (K2 `tris_per_tile_masked`, `bin_groups_masked`
+groups, its tables stride-padded to the global K2): its nearest fragment
+samples its albedo alpha at half resolution, the margin alpha − cutoff is
+upsampled linearly, and the fragment wins a pixel where the margin is ≥ 0 and
+it is nearer than the opaque result. Its vids follow every earlier pass's
+groups (seg·256), and its tables are concatenated after theirs. Only the
+nearest masked fragment resolves, and masked geometry stays out of the HiZ
+pyramid, as in the JAX package.
+
 The static-frame memo reuses the shadow term, AO and the aerial apply on
 frames whose key (an xor of the world matrices' bit patterns, the sun, the
 camera's position, forward and up) equals the carried one. The key leaves out
 the camera's intrinsics and collides on swapped transforms, as in the JAX
 package (`tests/test_torch_render3d.py` names both).
 
-Not ported yet, and refused with NotImplementedError: texturing,
-alpha-masked materials, debug views and the non-kernel raster path.
+Not ported yet, and refused with NotImplementedError: texturing and alpha
+masks on the group route, debug views and the non-kernel raster path.
 """
 
 from __future__ import annotations
@@ -47,8 +66,10 @@ from typing import Any, Callable
 
 import torch
 
+from ..assets.material import FLAG_ALPHA_MASK
 from ..ops import hiz as hiz_ops
 from ..ops import raster3d, raster_groups
+from ..ops import sampling
 from ..ops.cull import cull_instances, cull_meshlets, expand_meshlet_instances
 from ..ops.setup3d import (
     bin_meshlets_to_tiles,
@@ -134,6 +155,110 @@ def static_frame_key(world: Tensor, sun_dir: Tensor, camera: CameraMatrices) -> 
     return torch.cat([sig, sun_dir, camera.position, camera.forward, camera.up])
 
 
+def _textured_rows(materials) -> Tensor:
+    """The (M, 32) material rows as the textured route reads them: rounded
+    to float16, as the JAX package stores its per-slot rows."""
+    return sampling.pack_material_tables(materials).half().float()
+
+
+def texture_gbuffer(gbuffer: dict, vid: Tensor, slot_material: Tensor, n_slots_r: int, rows: Tensor,
+                    taps: Tensor, atlas_size: int, features: tuple) -> dict:
+    """The G-buffer with the material textures applied: albedo and normal
+    sampled at half resolution, metallic-roughness (with the shared-rect
+    occlusion) and emissive at quarter resolution from the
+    quarter-resolution vids, each rate upsampled linearly in one packed
+    call, the normal perturbed at full resolution. `rows` are the (M, 32)
+    material rows (`_textured_rows`)."""
+    h, w = vid.shape
+    n_tab = slot_material.shape[0]
+
+    def slot_rows_at(vid_img: Tensor) -> Tensor:
+        # vid = group·256 + slot; a miss gathers slot 0's row (masked below)
+        flat = torch.clamp((vid_img >> 8) * n_slots_r + (vid_img & 255), 0, n_tab - 1).reshape(-1).long()
+        return rows[slot_material[flat].long()]
+
+    uv_h = _pds(gbuffer["uv"], 2).reshape(-1, 2)
+    vid_h = _pds(vid, 2)
+    h2, w2 = vid_h.shape
+    hi_feats = tuple(f for f in features if f in ("albedo", "normal"))
+    lo_feats = tuple(f for f in features if f in ("mr", "emissive"))
+    tex = sampling.sample_material_textures(slot_rows_at(vid_h), taps, atlas_size, uv_h, features=hi_feats)
+    valid_h = (vid_h >= 0).reshape(-1, 1)
+    out = dict(gbuffer)
+    hi_parts, hi_lanes = [], {}
+    if "albedo" in hi_feats:
+        hi_lanes["albedo"] = 0
+        hi_parts.append(torch.where(valid_h, tex["albedo_rgb"], 1.0))
+    if "normal" in hi_feats:
+        hi_lanes["normal"] = sum(p.shape[-1] for p in hi_parts)
+        flat_n = torch.tensor([0.0, 0.0, 1.0], device=vid.device)
+        hi_parts.append(torch.where(valid_h, tex["normal_ts"], flat_n))
+    if hi_parts:
+        hc = sum(p.shape[-1] for p in hi_parts)
+        hi_full = resize_linear(torch.cat(hi_parts, -1).reshape(h2, w2, hc), (h, w, hc))
+    if lo_feats:
+        vid_q = _pds(vid, 4)
+        hq, wq = vid_q.shape
+        tex_q = sampling.sample_material_textures(slot_rows_at(vid_q), taps, atlas_size,
+                                                  _pds(gbuffer["uv"], 4).reshape(-1, 2), features=lo_feats)
+        valid_q = (vid_q >= 0).reshape(-1, 1)
+        lo_parts, lo_lanes = [], {}
+        if "mr" in lo_feats:
+            lo_lanes["mr"], lo_lanes["occ"] = 0, 2
+            lo_parts += [torch.where(valid_q, tex_q["mr"], 1.0), torch.where(valid_q, tex_q["occlusion"], 1.0)]
+        if "emissive" in lo_feats:
+            lo_lanes["emissive"] = sum(p.shape[-1] for p in lo_parts)
+            lo_parts.append(torch.where(valid_q, tex_q["emissive_rgb"], 1.0))
+        lc = sum(p.shape[-1] for p in lo_parts)
+        lo_full = resize_linear(torch.cat(lo_parts, -1).reshape(hq, wq, lc), (h, w, lc))
+    if "albedo" in features:
+        o = hi_lanes["albedo"]
+        out["albedo"] = gbuffer["albedo"] * hi_full[..., o : o + 3]
+    if "mr" in features:
+        o = lo_lanes["mr"]
+        out["metallic"] = gbuffer["metallic"] * lo_full[..., o]
+        out["roughness"] = gbuffer["roughness"] * lo_full[..., o + 1]
+        out["occlusion"] = gbuffer["occlusion"] * lo_full[..., lo_lanes["occ"]]
+    if "emissive" in features:
+        o = lo_lanes["emissive"]
+        out["emissive"] = gbuffer["emissive"] * lo_full[..., o : o + 3]
+    if "normal" in features:
+        # the detail is sampled at half resolution, the frame it perturbs is full resolution
+        o = hi_lanes["normal"]
+        out["normal"] = torch.where(
+            gbuffer["hit"][..., None],
+            sampling.perturb_normal(gbuffer["normal"], gbuffer["tangent"], hi_full[..., o : o + 3]),
+            gbuffer["normal"],
+        )
+    return out
+
+
+def alpha_mask_merge(depth: Tensor, vid: Tensor, gb_img: Tensor, masked: tuple, seg: int, n_slots_r: int,
+                     rows: Tensor, taps: Tensor, atlas_size: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The masked pass's per-pixel cutoff and merge: its nearest fragment's
+    albedo alpha sampled at half resolution, the margin alpha − cutoff
+    upsampled linearly, and the fragment taken where the margin is ≥ 0 and it
+    is nearer than the opaque result. `masked` is the pass's (depth, vid, gb,
+    bin_overflow, slot tables); its tables follow the `seg` groups of the
+    earlier passes', so a taken vid moves up by seg·256. `rows` are the
+    (M, 32) material rows, rounded to float16 on the textured route as the
+    textured G-buffer reads them. Returns the merged (depth, vid, gb)."""
+    d_m, v_m, gb_m, _ov, tabs_m = masked
+    h, w = depth.shape
+    uv_mh = _pds(gb_m[..., 3:5].to(torch.float32), 2).reshape(-1, 2)
+    v_mh = _pds(v_m, 2)
+    mh2, mw2 = v_mh.shape
+    flat_mh = torch.clamp((v_mh >> 8) * n_slots_r + (v_mh & 255), 0, tabs_m[0].shape[0] - 1).reshape(-1).long()
+    rows_m = rows[tabs_m[0][flat_mh].long()]
+    tex_m = sampling.sample_material_textures(rows_m, taps, atlas_size, uv_mh, features=("albedo",))
+    # the signed alpha margin, upsampled to full resolution: smooth cutout edges
+    margin_h = torch.where(v_mh.reshape(-1) >= 0, tex_m["alpha"][..., 0] - rows_m[..., 25], -1.0)
+    alpha_ok = resize_linear(margin_h.reshape(mh2, mw2), (h, w)) >= 0.0
+    use_m = (v_m >= 0) & alpha_ok & (d_m > depth)
+    return (torch.where(use_m, d_m, depth), torch.where(use_m, v_m + seg * 256, vid),
+            torch.where(use_m[..., None], gb_m, gb_img))
+
+
 @dataclasses.dataclass
 class RendererInstance:
     spec: RenderSpec
@@ -176,18 +301,27 @@ class RendererInstance:
         sun_intensity: float = 10.0,
         first_clipmap_width: float = 10.0,
         textured: bool = False,
+        texture_features: tuple = sampling.FEATURES,
         particles: bool = False,
         alpha_masked: bool = False,
         static_lights: int = 8,
+        binning_stats: bool = False,
     ) -> dict:
         """Run the frame graph. Returns the resource dict (final image in
-        "final", carried state under "carry" — feed it back as `prev`)."""
+        "final", carried state under "carry" — feed it back as `prev`).
+        `textured` samples the material textures of `texture_features`
+        (albedo, normal, mr, emissive) on the G-buffer; `alpha_masked` rasters
+        the alpha-masked materials in their own pass (the tile route).
+        `binning_stats` adds "bin_pairs", the (tile, entry) pairs every pass
+        binned, to the returned dict (a device tensor)."""
         spec = self.spec
         if enable_gtao is None:
             enable_gtao = config.vbgtao_enable
+        group = spec.raster_path == "group"
         for on, what in (
-            (textured, "texturing"),
-            (alpha_masked, "alpha-masked materials"), (bool(config.debug_view), "debug views"),
+            (textured and group, "texturing on the group raster route"),
+            (alpha_masked and group, "alpha-masked materials on the group raster route"),
+            (bool(config.debug_view), "debug views"),
             (spec.raster_path not in ("tile", "group"), f"raster_path={spec.raster_path!r}"),
             (not spec.use_pallas, "the decode raster path (use_pallas=False)"),
         ):
@@ -277,6 +411,9 @@ class RendererInstance:
         else:
             n_slots_r = spec.raster_group if spec.compact_raster else setup["tri_valid"].shape[1]
         mat_idx = gscene.inst_material[vm_inst.long()].long()
+        # the opaque passes leave out the meshlets whose material is alpha-masked
+        is_masked_vm = (materials.flags[mat_idx] & FLAG_ALPHA_MASK) > 0 if alpha_masked else None
+        opaque_f = ~is_masked_vm if alpha_masked else None
         consts_m = torch.cat(
             [materials.albedo_color[:, :3], materials.metallic_factor[:, None],
              materials.roughness_factor[:, None], materials.emissive_color],
@@ -284,16 +421,28 @@ class RendererInstance:
         )  # (M, 8) material-indexed constants
         if use_tile_raster:
             # the per-slot row matrix is built once from the full visible set and
-            # shared by both passes (a pass's entries only reference its valid slots)
+            # shared by the passes (a pass's entries only reference its valid slots)
             dense_full = passthrough_groups(setup, setup["tri_valid"], mat_idx, vm_inst)
             comb = raster3d.build_tile_comb(dense_full, consts_m[dense_full["slot_material"].long()])
+        # the packed atlas taps and material rows the masked pass and the textured G-buffer sample
+        taps = sampling.pack_atlas_taps(atlas, dtype=torch.bfloat16) if textured or alpha_masked else None
+        mat_rows = None
+        if textured:
+            mat_rows = _textured_rows(materials)
+        elif alpha_masked:
+            mat_rows = sampling.pack_material_tables(materials)
+        pass_pairs: list[Tensor] = []  # with binning_stats, each pass's binned (tile, entry) pairs
 
-        def raster_pass(vis_mask: Tensor, k2: int | None = None, k_groups: int | None = None):
+        def raster_pass(vis_mask: Tensor, tri_filter: Tensor | None = None, k2: int | None = None,
+                        k_groups: int | None = None):
             """One G-buffer raster pass → (depth, vid, gb, bin_overflow, slot
             tables): on the tile route stride-padded to the global entry
             stride; on the group route per dense slot of the pass's groups,
-            whose capacities `k2` and `k_groups` do not touch."""
+            whose capacities `k2` and `k_groups` do not touch. `tri_filter`
+            (VM,) keeps a subset of the meshlets (the opaque / masked split)."""
             tri_mask = setup["tri_valid"] & vis_mask[:, None]
+            if tri_filter is not None:
+                tri_mask = tri_mask & tri_filter[:, None]
             if not use_tile_raster:
                 if spec.compact_raster:
                     dense = compact_triangles(setup, tri_mask, mat_idx, vm_inst, group=spec.raster_group,
@@ -303,6 +452,8 @@ class RendererInstance:
                 rows = raster3d.build_tile_comb(dense, consts_m[dense["slot_material"].long()])
                 near_eo = torch.flip(torch.cummax(torch.flip(dense["ml_near"], [0]), 0).values, [0])
                 tile_list, ov = bin_meshlets_to_tiles(dense, w, h, spec.tile, spec.meshlets_per_tile)
+                if binning_stats:
+                    pass_pairs.append((tile_list >= 0).sum())
                 d, v, gb = raster_groups.rasterize_gbuffer_groups(rows, tile_list, w, h, n_slots_r, ml_near=near_eo,
                                                                   tile=spec.tile)
                 tables = tuple(dense[k].reshape(-1).to(torch.int32)
@@ -311,6 +462,8 @@ class RendererInstance:
             k2_p = k2 or spec.tris_per_tile
             bounds = passthrough_bounds(setup, tri_mask)
             entries, cnts, ov = bin_triangles_per_tile(bounds, w, h, spec.tile, k_groups or spec.bin_groups_per_tile, k2_p)
+            if binning_stats:
+                pass_pairs.append(cnts.sum())
             blocks = raster3d.pack_tile_blocks(entries, comb)
             d, v, gb = raster3d.rasterize_gbuffer_tiles(blocks, cnts, w, h, tile=spec.tile)
             tables = blocks["tables"]
@@ -331,13 +484,13 @@ class RendererInstance:
         use_occlusion = config.culling_occlusion and "hiz" in prev
         if use_occlusion:
             early_vis = hiz_ops.occlusion_test(prev["hiz"], *bounds4, ml_near, w, h) & vm_valid
-            depth, vid, gb_img, overflow, slot_tables = raster_pass(early_vis)
+            depth, vid, gb_img, overflow, slot_tables = raster_pass(early_vis, opaque_f)
             hiz = hiz_ops.build_hiz(depth)
             late_vis = hiz_ops.occlusion_test(hiz, *bounds4, ml_near, w, h) & vm_valid & ~early_vis
             # the late pass exists only when something was revealed this frame
             if bool(late_vis.any()):
                 d2, v2, gb2, overflow2, tables2 = raster_pass(
-                    late_vis,
+                    late_vis, opaque_f,
                     k2=min(spec.tris_per_tile_late, spec.tris_per_tile),
                     k_groups=min(spec.bin_groups_late, spec.bin_groups_per_tile),
                 )
@@ -356,11 +509,27 @@ class RendererInstance:
             carry["hiz"] = hiz
             overflow = overflow + overflow2
         else:
-            depth, vid, gb_img, overflow, slot_tables = raster_pass(vm_valid)
+            depth, vid, gb_img, overflow, slot_tables = raster_pass(vm_valid, opaque_f)
             if config.culling_occlusion:
                 carry["hiz"] = hiz_ops.build_hiz(depth)
 
+        # ---- alpha-masked geometry: its own pass and a per-pixel cutoff ---
+        if alpha_masked:
+            vis_all = (early_vis | late_vis) if use_occlusion else vm_valid
+            masked = raster_pass(
+                vis_all, is_masked_vm,
+                k2=min(spec.tris_per_tile_masked, spec.tris_per_tile),
+                k_groups=min(spec.bin_groups_masked, spec.bin_groups_per_tile),
+            )
+            seg = slot_tables[0].shape[0] // n_slots_r  # groups already tabled
+            depth, vid, gb_img = alpha_mask_merge(depth, vid, gb_img, masked, seg, n_slots_r, mat_rows, taps,
+                                                  atlas.shape[0])
+            slot_tables = tuple(torch.cat([a, b]) for a, b in zip(slot_tables, masked[4]))
+            overflow = overflow + masked[3]
+
         ctx.update(depth=depth, visbuffer=vid, setup=setup, bin_overflow=overflow, expand_overflow=expand_overflow)
+        if binning_stats:
+            ctx["bin_pairs"] = torch.stack(pass_pairs).sum()
         ctx["slot_material"], ctx["slot_instance"], ctx["slot_packed_id"] = slot_tables
         ctx["slot_group"] = n_slots_r
         # surfaced through the carry so callers can assert no capacity dropped work
@@ -370,6 +539,9 @@ class RendererInstance:
 
         # ---- Decode → GBuffer --------------------------------------------
         gbuffer = raster3d.gbuffer_from_raster(gb_img, vid, depth, torch.linalg.inv(camera.view_projection))
+        if textured:
+            gbuffer = texture_gbuffer(gbuffer, vid, slot_tables[0], n_slots_r, mat_rows, taps, atlas.shape[0],
+                                      texture_features)
         ctx["gbuffer"] = gbuffer
         ctx = self._run_cbs(RenderStage.VISBUFFER_DECODE, "after", ctx)
         ctx["lights"] = lights

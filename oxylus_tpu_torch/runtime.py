@@ -23,11 +23,12 @@ Routes as the JAX runner does:
 Which implementation a kernel runs is picked inside its wrapper by the tensors'
 device: the CUDA kernel on a card, the plain version on the CPU. The runner
 runs on the card unless `device="cpu"` is given; the scene must live on the
-same device. Per-frame script hooks are carried over; audio and the unported
-render features raise (textured and alpha-masked materials in the 3D frame:
-the 2D path samples its textures and applies the cutoff itself).
+same device. Per-frame script hooks are carried over; audio raises.
 `atmosphere` (an `AtmosphereParams`) and `enable_shadows` go to every
-rendered frame, as in the JAX runner.
+rendered frame, as in the JAX runner, and so do the texturing gates, taken
+once from the bound materials' flag bits: the texture kinds some material
+carries (`texture_features`; texturing is on when there is one) and whether
+some material is alpha-masked (the 3D frame's masked pass).
 """
 
 from __future__ import annotations
@@ -39,7 +40,13 @@ import numpy as np
 import torch
 
 from .assets.bake import BakedMesh
-from .assets.material import FLAG_ALPHA_MASK
+from .assets.material import (
+    FLAG_ALPHA_MASK,
+    FLAG_HAS_ALBEDO,
+    FLAG_HAS_EMISSIVE,
+    FLAG_HAS_METALLIC_ROUGHNESS,
+    FLAG_HAS_NORMAL,
+)
 from .core import uuid as uuidlib
 from .core.config import RendererConfig
 from .device import resolve_device
@@ -80,6 +87,7 @@ class SceneRunner:
         enable_shadows: bool = False,
         audio_engine=None,
         material_slots: dict | None = None,
+        binning_stats: bool = False,
         device=None,
     ) -> None:
         dev = resolve_device(device)
@@ -113,6 +121,12 @@ class SceneRunner:
         self.state = scene.to_device_state()
         self.ps = scene.physics_state
         self.carry: dict[str, Any] = {}
+        # the last rendered frame's binning counts, as device tensors (no host
+        # read): 3D "bin_overflow", "expand_overflow" and, with
+        # `binning_stats`, "bin_pairs"; 2D, with `binning_stats` only,
+        # "tile_dropped" and "tile_pairs"
+        self.binning_stats = binning_stats
+        self.frame_stats: dict[str, Any] = {}
         self.frame_index = 0
         self.last_frame = None
         self._script_accum = 0.0  # host mirror of the 60 Hz tick for on_fixed_update
@@ -150,11 +164,17 @@ class SceneRunner:
                 # per atmosphere, as the JAX runner prewarms its LUT cache
                 self.renderer3d.sky_luts(atmosphere, dev)
         self.bindings = bindings or default_bindings(scene.spec.padded_entities(), device=dev)
+        # static texturing gates: a texture kind is sampled only when some
+        # bound material carries it, and the masked pass runs only when some
+        # material is alpha-masked
         flags = self.bindings.materials.flags.cpu().numpy()
-        if render_mode == "3d" and np.any(flags & 0b1111):
-            raise _not_ported("texturing in the 3D frame")
-        if render_mode == "3d" and np.any(flags & FLAG_ALPHA_MASK):
-            raise _not_ported("alpha-masked materials in the 3D frame")
+        self._texture_features = tuple(
+            name for name, bit in (("albedo", FLAG_HAS_ALBEDO), ("normal", FLAG_HAS_NORMAL),
+                                   ("emissive", FLAG_HAS_EMISSIVE), ("mr", FLAG_HAS_METALLIC_ROUGHNESS))
+            if np.any(flags & bit)
+        )
+        self._textured = bool(self._texture_features)
+        self._has_alpha_mask = bool(np.any(flags & FLAG_ALPHA_MASK))
         # static particle gate: scenes without emitters leave the Forward2D
         # particle composite out of the 3D frame
         self._has_particles = bool(
@@ -262,8 +282,10 @@ class SceneRunner:
         if render and self.render_mode == "2d":
             camera = self.active_camera()
             if camera is not None:
+                self.frame_stats = {}
                 image, _vis = render_2d_with_particles(
-                    self.state, camera, self.bindings, width=self.width, height=self.height
+                    self.state, camera, self.bindings, width=self.width, height=self.height,
+                    stats=self.frame_stats if self.binning_stats else None,
                 )
         self._script_frame_end(image)
         self.last_frame = image
@@ -346,9 +368,11 @@ class SceneRunner:
         ctx = self.renderer3d.render(
             self.state, self.gscene, camera, self.bindings.materials, self.bindings.atlas, self.config,
             prev=self.carry, atmosphere=self.atmosphere, enable_shadows=self.enable_shadows,
-            particles=self._has_particles, static_lights=self._static_lights,
+            textured=self._textured, texture_features=self._texture_features, particles=self._has_particles,
+            alpha_masked=self._has_alpha_mask, static_lights=self._static_lights, binning_stats=self.binning_stats,
         )
         self.carry = ctx["carry"]
+        self.frame_stats = {k: ctx[k] for k in ("bin_overflow", "bin_pairs", "expand_overflow") if k in ctx}
         return ctx["final"]
 
     def run(self, frames: int, dt: float = 1.0 / 60.0, render: bool = True):

@@ -72,6 +72,28 @@ def quat_to_mat3(q: Tensor) -> Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def mat3_to_quat(m: Tensor) -> Tensor:
+    """Rotation matrix (..., 3, 3) → quaternion (x, y, z, w): of the four
+    reconstructions the one with the largest diagonal term, normalised."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def _q(tw, tx, ty, tz):
+        return torch.stack([tx, ty, tz, tw], dim=-1)
+
+    qs = torch.stack([
+        _q(1 + tr, m21 - m12, m02 - m20, m10 - m01),
+        _q(m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20),
+        _q(m02 - m20, m01 + m10, 1 + m11 - m00 - m22, m12 + m21),
+        _q(m10 - m01, m02 + m20, m12 + m21, 1 + m22 - m00 - m11),
+    ], dim=-2)  # (..., 4, 4)
+    idx = torch.argmax(torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1), dim=-1)
+    q = torch.take_along_dim(qs, idx[..., None, None], dim=-2)[..., 0, :]
+    return quat_normalize(q)
+
+
 def quat_slerp(a: Tensor, b: Tensor, t) -> Tensor:
     """Spherical lerp with shortest-path sign fix; falls back to nlerp near 0 angle."""
     dot = torch.sum(a * b, dim=-1, keepdim=True)

@@ -229,9 +229,11 @@ def test_runner_routes_frame_state_matches_jax(runner_pair):
 
 
 def test_runner_refuses_unported_routes():
-    """What the port does not run yet raises: audio, textured and alpha-masked
-    materials in the 3D frame; a runner on another device than its scene is
-    refused. The 2D renderer and the 3D particle composite are taken now."""
+    """What the port does not run yet raises: audio, and textured and
+    alpha-masked materials on the group raster route; a runner on another
+    device than its scene is refused. The 2D renderer, the 3D particle
+    composite, and textured and alpha-masked materials on the tile route are
+    taken now: the runner derives its texturing gates from the flag bits."""
     s = _pile_scene(TScene, tstate.SceneSpec)
     assert SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")._has_particles
     with pytest.raises(ValueError):  # the scene lives on the CPU
@@ -242,11 +244,19 @@ def test_runner_refuses_unported_routes():
 
     assert SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=_cube_meshes(bake_mesh),
                        device="cpu")._has_particles
-    for flag, what in ((FLAG_HAS_ALBEDO, "texturing"), (FLAG_ALPHA_MASK, "alpha-masked")):
+    from oxylus_tpu_torch.render.renderer3d import RenderSpec
+
+    for flag, what, gates in ((FLAG_HAS_ALBEDO, "texturing", (("albedo",), True, False)),
+                              (FLAG_ALPHA_MASK, "alpha-masked", ((), False, True))):
         b = default_bindings(s.spec.padded_entities(), device="cpu")
         b.materials.flags[0] |= flag
+        runner = SceneRunner(s, render_mode="3d", meshes=_cube_meshes(bake_mesh), bindings=b, device="cpu",
+                             render_spec=RenderSpec(raster_path="group"))
+        assert (runner._texture_features, runner._textured, runner._has_alpha_mask) == gates
         with pytest.raises(NotImplementedError, match=what):
-            SceneRunner(s, render_mode="3d", meshes=_cube_meshes(bake_mesh), bindings=b, device="cpu")
+            runner.renderer3d.render(runner.state, runner.gscene, runner.active_camera(), b.materials, b.atlas,
+                                     runner.config, textured=runner._textured,
+                                     texture_features=runner._texture_features, alpha_masked=runner._has_alpha_mask)
         SceneRunner(s, render_mode="2d", bindings=b, device="cpu")  # the 2D path samples and masks itself
     audio = _pile_scene(TScene, tstate.SceneSpec, emitter=False)
     e = audio.create_entity("speaker")

@@ -89,3 +89,20 @@ def test_occlusion_test_matches_exactly(pyramids):
     got = thiz.occlusion_test([torch.from_numpy(m) for m in want], *map(torch.from_numpy, (x0, x1, y0, y1, near)), w, h)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert 0 < ref.sum() < n  # both outcomes exercised
+
+
+def test_counters_are_kept_per_card_and_stream():
+    """ROADMAP C4: the kernel's finished-block counter is keyed by (card,
+    stream), so launches on two streams never count into one counter; a key
+    seen again gets its own counter back, zeroed."""
+    cpu = torch.device("cpu")
+    saved = dict(thiz._COUNTERS)
+    try:
+        a, b = thiz._counter(cpu, 11), thiz._counter(cpu, 12)
+        assert a is not b and a.data_ptr() != b.data_ptr()
+        assert thiz._counter(cpu, 11) is a and thiz._counter(torch.device("cpu"), 12) is b
+        assert a.dtype == torch.int32 and a.shape == (1,) and int(a) == 0 and int(b) == 0
+        assert {(cpu, 11), (cpu, 12)} <= set(thiz._COUNTERS)
+    finally:
+        thiz._COUNTERS.clear()
+        thiz._COUNTERS.update(saved)

@@ -61,6 +61,11 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.probes.dot_rhs_t",
     "oxylus_tpu_torch.probes.mosaic_ops",
     "oxylus_tpu_torch.probes.roll",
+    "oxylus_tpu_torch.assets.texture",
+    "oxylus_tpu_torch.assets.gltf",
+    "oxylus_tpu_torch.assets.procgen",
+    "oxylus_tpu_torch.ops.sampling",
+    "oxylus_tpu_torch.sponza",
 ]
 
 PROBE = f"""
@@ -125,3 +130,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         build_frame3d_scene(64, 64, n_objects=2)
     with pytest.raises(RuntimeError):
         SceneRunner(Scene("s", device="cpu"))
+    from oxylus_tpu_torch.assets.material import Material, pack_materials
+    from oxylus_tpu_torch.sponza import build_sponza_scene
+
+    with pytest.raises(RuntimeError):
+        build_sponza_scene(64, 64, n_meshes=5, n_materials=4)
+    with pytest.raises(RuntimeError):
+        pack_materials([Material()], {}, 4)
