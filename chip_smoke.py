@@ -65,16 +65,20 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    capacity would drop; then one frame is rendered with the kernels and with
    the plain versions from a shared state, and the two images must be equal;
 6. the dense kernel vs plain from the flagship's start state, 8 free-fall
-   substeps in one call (the contact half of this phase runs after phase 7,
-   on its pile);
+   substeps in one call (exactly equal), and one substep on `cap_scene` (one
+   body past the kernel's cap of partners, counted by `megakernel.cap_stats`);
+   every dense and banded check runs the kernel twice and requires the same
+   bits (the contact half of this phase runs after phase 7, on its pile);
 7. the headless dense runner, `SceneRunner(render_mode="none",
    use_megakernel=True)` on the flagship: 2 warm-up frames, then 60 frames
    with every launch count set to 0 just before; the dense kernel must have
    launched, the state be finite and no box centre below the floor's
    mid-plane; then 4 runner frames, each from a shared state, kernel vs plain;
    then phase 6's contact check: one substep from the pile, kernel vs plain,
-   both timed, and the operations bound on that pile's pairs and points
-   (`megakernel.pair_work`);
+   both timed (the wrapper, and the kernel's launch alone), and the operations
+   bound on that pile's pairs and points (`megakernel.pair_work`) with the
+   launch's share of it, and the device launches of one call (torch.profiler:
+   one of the dense kernel);
 8. the default runner (`use_megakernel=False`, `physics_substep`) on
    `entry()`'s scene with `max_pairs=2048`: 60 frames, the broadphase's
    pairs and dropped pairs in every substep of them, the same state gates;
@@ -120,12 +124,16 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    vs plain from the flagship's start state, 8 and 60 substeps in the bench's
    configuration (iterations 3, warm 0.7, geom_every 2) and 8 in the cold one
    (iterations 10), and 5 sleeping substeps on phase 4's pile with the sleep
-   threshold in a gap of its speeds (flags and timers equal); then, with every
+   threshold in a gap of its speeds (flags and timers equal), and both the
+   banded (4 substeps) and the dense kernel (one) on a 2000-box pile at
+   capacity 2048, past one warp per body; then, with every
    launch count set to 0 just before, the `physics` cell through
    `bench_physics(kernel="banded")` (its gates, 50 banded launches, body-steps/s,
    the coverage at the kernel's BAND of 128 at start and end), one 60-substep
-   call from its pile timed against the plain version and the bound from that
-   pile's pairs (`megakernel_banded.pair_work`); `run_physics10k()` (the compact
+   call from its pile timed against the plain version (the wrapper, and the
+   kernel's launch alone) and the bound from that pile's pairs
+   (`megakernel_banded.pair_work`) with the launch's share of it, and the
+   device launches of one call (one of the banded kernel); `run_physics10k()` (the compact
    kernel at capacity 10112, its gates, 26 launches), compact vs plain on its
    end state for 4 substeps and one 60-substep call there timed against the
    plain version and its bound; the `dense` and `mega=False` routes, one call
@@ -280,6 +288,7 @@ BLEND_RANGE_ROUNDING = 1e-6
 # (tests/test_torch_sponza.py::test_fxaa_rounds_past_one_as_jax)
 FXAA_RANGE_ROUNDING = 1e-6
 ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
+WIDE_BOXES, WIDE_CAPACITY = 2000, 2048  # phase 12a: more bodies than the physics kernels' grid has warps
 SPONZA_FRAMES, SPONZA_WINDOW = 8, 12  # phase 15: frames with the launches gated; frames per timed window
 BENCH_TIMEOUT = 600  # s: phase 16's bench suite
 EVENT_FRAMES = 4
@@ -309,6 +318,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, name: str) -> tuple[int, int]:
+    """Device work of one call of `fn`, traced by torch.profiler (CUPTI) after
+    a warm-up call: the kernels whose name holds `name`, and all device
+    activities (the wrapper's PyTorch ops and copies included)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(name in n for n in names), len(names)
 
 
 @contextlib.contextmanager
@@ -376,6 +399,25 @@ def psnr(a, b) -> float:
 
 def state_err(got, want) -> dict:
     return {k: (getattr(got, k) - getattr(want, k)).abs().max().item() for k in FIELDS}
+
+
+def cap_scene(ps):
+    """The flagship's start state `ps` with its first dynamic box made a plate
+    (half extents 0.6 m past the pile's box centres in x and z, 0.05 m in y)
+    lying at y = 1.58 m, in the gap between the two lowest layers of boxes,
+    some of whose tops (1.5 ± 0.05 m) it touches: its AABB overlaps well over
+    `megakernel.CAP` boxes, every other box's a few, so one body is past the
+    dense kernel's cap (`tests/test_torch_physics_redesign.py` checks this)."""
+    from oxylus_tpu_torch.physics.state import BODY_DYNAMIC
+
+    dyn = (ps.body_type == BODY_DYNAMIC) & ps.active
+    i = int(torch.nonzero(dyn)[0])
+    lo, hi = ps.pos[dyn].amin(0), ps.pos[dyn].amax(0)
+    pos, half, quat = ps.pos.clone(), ps.half_extent.clone(), ps.quat.clone()
+    pos[i] = torch.stack([(lo[0] + hi[0]) / 2, torch.tensor(1.58, device=ps.device), (lo[2] + hi[2]) / 2])
+    half[i] = torch.stack([(hi[0] - lo[0]) / 2 + 0.6, torch.tensor(0.05, device=ps.device), (hi[2] - lo[2]) / 2 + 0.6])
+    quat[i] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=ps.device)
+    return dataclasses.replace(ps, pos=pos, half_extent=half, quat=quat)
 
 
 def seeded_groups(seed, width, height, n_groups, n_slots, size, crowd):
@@ -1255,17 +1297,31 @@ def main() -> int:
 
     # ---- 6. dense kernel vs plain from the flagship's start state ------------------
     def dense_vs_plain(label, ps, n_substeps):
+        """The kernel twice (the same bits) and the plain version on one card state."""
         got = mk.megakernel_substeps(ps, params, DT, n_substeps=n_substeps)
+        again = mk.megakernel_substeps(ps, params, DT, n_substeps=n_substeps)
+        same = all(torch.equal(getattr(got, k), getattr(again, k)) for k in FIELDS)
         with plain_on_card(mk):
             want = mk.megakernel_substeps(ps, params, DT, n_substeps=n_substeps)
         err = state_err(got, want)
-        print(f"[{label}] dense kernel vs plain max abs err {err}", flush=True)
+        print(f"[{label}] dense kernel vs plain max abs err {err}; two kernel runs give the same bits: {same}",
+              flush=True)
+        check(same, f"{label}: two runs of the dense kernel differ")
         check(all(bool(torch.isfinite(getattr(got, k)).all()) for k in FIELDS), f"{label}: kernel output not finite")
         for k, e in err.items():
             check(e <= TOL_8, f"{label}: {k} error {e}")
         return err
 
-    dense_vs_plain("6: 8 free-fall substeps", ps0, 8)
+    free_err = dense_vs_plain("6: 8 free-fall substeps", ps0, 8)
+    check(max(free_err.values()) == 0.0, f"free fall is not exact: {free_err}")
+    # one body past the kernel's cap of partners: it walks all of them in every sweep
+    stats = mk.cap_stats(dev)
+    stats.zero_()
+    cap_err = dense_vs_plain("6: the cap scene, one substep", cap_scene(ps0), 1)
+    past, most = stats.tolist()
+    print(f"[6] cap scene: bodies past the cap of {mk.CAP} partners, summed over substeps: {past} in two kernel "
+          f"runs; the most partners {most}", flush=True)
+    check(past == 2 and most > mk.CAP, f"the cap scene put {past / 2} bodies past the cap ({most} partners)")
 
     # ---- 7. the headless dense runner on the flagship -----------------------------
     flag = build_flagship(FLAGSHIP_BOXES, device=dev)
@@ -1304,24 +1360,35 @@ def main() -> int:
 
     # phase 6's contact check, on the pile
     pile = runner.ps
+    stats.zero_()
     pile_err = dense_vs_plain("6: one substep from the phase-7 pile", pile, 1)
+    pile_past, pile_most = stats.tolist()
     dense_call = lambda: mk.megakernel_substeps(pile, params, DT, n_substeps=1)
     dense_ms = cuda_ms(dense_call, 20)
     with plain_on_card(mk):
         dense_plain_ms = cuda_ms(dense_call, 2)
+    iters = 10  # megakernel_substeps' default, which the runner uses
+    raw = []
+    with capture(mk, "run_dense", raw):
+        dense_call()
+    dense_kernel_ms = cuda_ms(lambda: mk._dense_cuda(*raw[0], n_substeps=1, iterations=iters), 20)
+    dense_launches, dense_ops = device_kernels(dense_call, "k_dense")
     work = mk.pair_work(pile)
     n_points = work.pop("points")
     b = pile.num_slots
-    iters = 10  # megakernel_substeps' default, which the runner uses
     dense_bound = bound(
         (mk.N_SCALARS + (mk.N_ROWS + mk.N_OUT) * b) * 4,
         b * (b - 1) // 2 * DENSE_OPS_TEST + sum(n * DENSE_OPS_PAIR[k] for k, n in work.items())
         + n_points * (DENSE_OPS_POINT + iters * DENSE_OPS_POINT_SWEEP),
     )
-    print(f"[6] dense call (1 substep, B={b}, overlapping ordered pairs {work}, {n_points} touching points): "
-          f"kernel {dense_ms:.4f} ms, plain {dense_plain_ms:.2f} ms, bound {dense_bound[0]:.6f} ms "
-          f"({dense_bound[1]}) ({card})", flush=True)
-    dense_err = max(*pile_err.values(), *frame_err.values())
+    print(f"[6] dense call (1 substep, B={b}, overlapping ordered pairs {work}, {n_points} touching points; "
+          f"bodies past the cap {pile_past // 2}, the most partners {pile_most}): wrapper {dense_ms:.4f} ms, the "
+          f"kernel's launch alone {dense_kernel_ms:.4f} ms, plain {dense_plain_ms:.2f} ms, bound "
+          f"{dense_bound[0]:.6f} ms ({dense_bound[1]}), {100 * dense_bound[0] / dense_kernel_ms:.3f} % of it by the "
+          f"launch; device launches per call: {dense_launches} of the dense kernel, {dense_ops} device activities "
+          f"in all ({card})", flush=True)
+    check(dense_launches == 1, f"a dense call launched the dense kernel {dense_launches} times")
+    dense_err = max(*pile_err.values(), *frame_err.values(), *cap_err.values())
 
     # ---- 8. the default runner on entry()'s scene ---------------------------------
     entry_params = PhysicsParams(max_pairs=ENTRY_MAX_PAIRS)
@@ -1754,16 +1821,20 @@ def main() -> int:
 
     # ---- 12. the physics bench cells: the banded kernel, physics10k, dense, substep
     def banded_vs_plain(label, ps, params, tol, **kw):
-        """One wrapper call with the banded kernel and one routed to its plain
-        version, on the same card state; checks every output, returns the kernel's."""
+        """Two wrapper calls with the banded kernel (the same bits) and one
+        routed to its plain version, on the same card state; checks every
+        output, returns the kernel's."""
         got = mb.megakernel_substeps_banded(ps, params, DT, **kw)
+        again = mb.megakernel_substeps_banded(ps, params, DT, **kw)
+        same = all(torch.equal(getattr(got, k), getattr(again, k)) for k in FIELDS + ("asleep", "sleep_timer"))
         with plain_on_card(mb):
             want = mb.megakernel_substeps_banded(ps, params, DT, **kw)
         err = state_err(got, want)
         timer_err = (got.sleep_timer - want.sleep_timer).abs().max().item()
         flips = int((got.asleep != want.asleep).sum())
         print(f"[{label}] banded kernel vs plain max abs err {err} (bound {tol}), sleep-timer err {timer_err:.3g} s, "
-              f"sleep-flag mismatches {flips}", flush=True)
+              f"sleep-flag mismatches {flips}; two kernel runs give the same bits: {same}", flush=True)
+        check(same, f"{label}: two runs of the banded kernel differ")
         check(all(bool(torch.isfinite(getattr(got, k)).all()) for k in FIELDS), f"{label}: kernel output not finite")
         check(flips == 0, f"{label}: sleep flags differ on {flips} bodies")
         check(timer_err <= TOL_8, f"{label}: sleep timers differ by {timer_err}")
@@ -1796,6 +1867,15 @@ def main() -> int:
     print(f"[12a] sleeping call: {n_asleep} of {int(dyn.sum())} boxes asleep (sleep velocity "
           f"{sleepy.sleep_velocity:.4f} m/s, in the speed gap {speeds[j].item():.4f}-{speeds[j + 1].item():.4f})")
     check(0 < n_asleep < int(dyn.sum()), "the banded sleeping call put no box, or every box, to sleep")
+    # both kernels past one warp per body (their grid holds ~1056 warps), where a warp takes
+    # bodies in turn: a pile of 2000 boxes at capacity 2048, in contact after 60 substeps
+    wide = build_flagship(WIDE_BOXES, spec_kw=dict(max_entities=4096, max_bodies=WIDE_CAPACITY),
+                          device=dev).physics_state
+    wide = mb.megakernel_substeps_banded(wide, params, DT, n_substeps=60, **bench_kw)
+    banded_err = max(banded_err, banded_vs_plain(f"12a: capacity {WIDE_CAPACITY}, bench config, 4 substeps", wide,
+                                                 params, TOL_60, n_substeps=4, **bench_kw)[1])
+    wide_err = dense_vs_plain(f"12a: capacity {WIDE_CAPACITY}, dense kernel, one substep", wide, 1)
+    dense_err = max(dense_err, *wide_err.values())
 
     # 12b. the physics cell through the banded route, every launch count set to 0 just before
     for mod in every_mod:
@@ -1818,6 +1898,12 @@ def main() -> int:
     banded_ms = cuda_ms(call60, 10)
     with plain_on_card(mb):
         banded_plain_ms = cuda_ms(call60, 1)
+    raw = []
+    with capture(mb, "run_banded", raw):
+        call60()
+    banded_kernel_ms = cuda_ms(lambda: mb._banded_cuda(*raw[0], n_substeps=60, sleep=False, **bench_kw), 10)
+    banded_launches, banded_ops = device_kernels(call60, "k_banded")
+    check(banded_launches == 1, f"a banded call launched the banded kernel {banded_launches} times")
     work = mb.pair_work(pile, geom_every=2)
     b = pile.num_slots
     n_rebuild, sweeps = 30, 60 * (bench_kw["iterations"] + 1)
@@ -1826,8 +1912,11 @@ def main() -> int:
         n_rebuild * (work["candidates"] * DENSE_OPS_TEST + sum(work[k] * n for k, n in DENSE_OPS_PAIR.items())
                      + work["points"] * DENSE_OPS_POINT) + work["points"] * sweeps * DENSE_OPS_POINT_SWEEP,
     )
-    print(f"[12b] banded 60-substep call from the cell's pile (B={b}, {work}): kernel {banded_ms:.3f} ms, plain "
-          f"{banded_plain_ms:.1f} ms, bound {banded_bound[0]:.6f} ms ({banded_bound[1]}) ({card})", flush=True)
+    print(f"[12b] banded 60-substep call from the cell's pile (B={b}, {work}): wrapper {banded_ms:.3f} ms, the "
+          f"kernel's launch alone {banded_kernel_ms:.3f} ms, plain {banded_plain_ms:.1f} ms, bound "
+          f"{banded_bound[0]:.6f} ms ({banded_bound[1]}), {100 * banded_bound[0] / banded_kernel_ms:.3f} % of it by "
+          f"the launch; device launches per call: {banded_launches} of the banded kernel, {banded_ops} device "
+          f"activities in all ({card})", flush=True)
 
     # 12c. physics10k: the compact kernel at capacity 10112, then compact vs
     # plain there on the cell's end state (the pile), and one call timed
@@ -2177,8 +2266,9 @@ def main() -> int:
              sponza={"launches_per_frame": sp_hiz_per_frame, "max_abs_err": sp_hiz_err, "ms": sp_hiz_ms,
                      "plain_ms": sp_hiz_plain,
                      "bound_ms": sp_hiz_bound[0], "bound_by": sp_hiz_bound[1]}),
-        row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
-            "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
+        dict(row("dense_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_dense.cu",
+                 "oxylus_tpu/physics/megakernel.py:46", mk, dense_err, dense_ms, dense_plain_ms, dense_bound),
+             kernel_ms=dense_kernel_ms, device_launches_per_call=dense_launches),
         dict(row("raster_depth", "oxylus_tpu_torch/ops/csrc/raster_depth.cu", "oxylus_tpu/ops/raster3d.py:153",
                  raster_depth, max([depth_err] + [r[0] for r in sp_depth]), depth_ms, depth_plain_ms, depth_bound),
              sponza={"levels": len(sp_depth), "ms": sum(r[1] for r in sp_depth),
@@ -2186,8 +2276,10 @@ def main() -> int:
                      "bound_by": sp_depth_bound[1]}),
         row("blend2d", "oxylus_tpu_torch/ops/csrc/blend2d.cu", "oxylus_tpu/ops/raster2d_pallas.py:41", blend2d,
             max(err10, err11), blend_ms, blend_plain_ms, blend_bound),
-        row("banded_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_banded.cu",
-            "oxylus_tpu/physics/megakernel_banded.py:80", mb, banded_err, banded_ms, banded_plain_ms, banded_bound),
+        dict(row("banded_substeps", "oxylus_tpu_torch/physics/csrc/megakernel_banded.cu",
+                 "oxylus_tpu/physics/megakernel_banded.py:80", mb, banded_err, banded_ms, banded_plain_ms,
+                 banded_bound),
+             kernel_ms=banded_kernel_ms, device_launches_per_call=banded_launches),
         row("raster_groups", "oxylus_tpu_torch/ops/csrc/raster_groups.cu", "oxylus_tpu/ops/raster3d.py:355",
             raster_groups, group_err, group_rows[0][1], group_rows[0][2], group_rows[0][3]),
     ] + probe_rows}))

@@ -97,11 +97,11 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.compact_substeps.restype = ci
         lib.dense_workspace_bytes.argtypes = [ci]
         lib.dense_workspace_bytes.restype = ctypes.c_size_t
-        lib.dense_substeps.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.dense_substeps.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.dense_substeps.restype = ci
         lib.banded_workspace_bytes.argtypes = [ci]
         lib.banded_workspace_bytes.restype = ctypes.c_size_t
-        lib.banded_substeps.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp]
+        lib.banded_substeps.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp]
         lib.banded_substeps.restype = ci
         lib.kernel_error_string.argtypes = [ci]
         lib.kernel_error_string.restype = ctypes.c_char_p

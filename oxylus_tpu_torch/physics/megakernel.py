@@ -21,8 +21,11 @@ Two implementations share one interface, `(scalars (8,), rows (32, B)) →
 - `dense_substeps_reference`: plain PyTorch on whole (B, B) pair tensors. The
   wrapper uses it for tensors on the CPU; `chip_smoke.py` holds the CUDA
   kernel against it on the card.
-- the CUDA kernel in `csrc/megakernel_dense.cu`, for tensors on a card. There
-  is no fallback: a CUDA tensor reaches the kernel or the call raises.
+- the CUDA kernel in `csrc/megakernel_dense.cu`, for tensors on a card: one
+  persistent cooperative launch a call, each overlapping ordered pair's
+  contact computed once a substep (a body past `CAP` partners derives its
+  own in every sweep; `cap_stats` counts them). There is no fallback: a CUDA
+  tensor reaches the kernel or the call raises.
 
 `megakernel_substeps` builds the scalar block and the input rows from a
 `PhysicsState`; `LAUNCHES` counts calls that went to the CUDA kernel.
@@ -49,6 +52,30 @@ MARGIN = 0.04  # AABB margin (m), fixed as in the TPU kernel
 # kernel launches made by `megakernel_substeps` (one per call that ran on a
 # card); read and reset by callers that must prove the kernel ran
 LAUNCHES = 0
+
+CAP = 64  # partners a body keeps for the kernel's sweeps; a body past it walks all B in each sweep
+# The kernel's passes, in the order of `PASS_CYCLES` (as `megakernel_banded.PASS_CYCLES`).
+PASSES = ("pre", "count", "geom", "sweep")
+PASS_CYCLES: Tensor | None = None
+
+_STATS: dict[tuple[torch.device, int], Tensor] = {}
+
+
+def _stats(dev: torch.device, stream: int) -> Tensor:
+    """The cap statistics of (`dev`, raw stream handle `stream`), an int32
+    (2,) tensor made zeroed at its first use. The kernel adds the bodies past
+    `CAP` in each substep to [0] and keeps the most partners such a body had
+    in [1]; a caller that wants one call's figures zeroes it first. Calls on
+    other streams never add to it."""
+    key = (dev, stream)
+    if key not in _STATS:
+        _STATS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _STATS[key]
+
+
+def cap_stats(dev: torch.device) -> Tensor:
+    """`_stats` of the card's current stream."""
+    return _stats(dev, torch.cuda.current_stream(dev).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +213,11 @@ def dense_substeps_reference(scalars: Tensor, rows: Tensor, *, n_substeps: int, 
 # ---------------------------------------------------------------------------
 
 def _dense_cuda(scalars: Tensor, rows: Tensor, *, n_substeps: int, iterations: int) -> Tensor:
-    """Launch the CUDA kernel pipeline on PyTorch's current stream. Raises on a
-    build or launch error; never falls back."""
+    """Launch the CUDA kernel on PyTorch's current stream: one cooperative
+    launch for the whole call. Raises on a build or launch error; never falls
+    back."""
     from .._build import load_kernel_library
+    from .megakernel_banded import _cycles_ptr
 
     lib = load_kernel_library()
     b = rows.shape[1]
@@ -199,8 +228,10 @@ def _dense_cuda(scalars: Tensor, rows: Tensor, *, n_substeps: int, iterations: i
             raise ValueError("scalars and rows must be contiguous float32 tensors on one card")
     ws = torch.empty(lib.dense_workspace_bytes(b), dtype=torch.uint8, device=rows.device)
     out = torch.empty((N_OUT, b), dtype=torch.float32, device=rows.device)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    err = lib.dense_substeps(scalars.data_ptr(), rows.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+    dev = rows.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.dense_substeps(scalars.data_ptr(), rows.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                             _stats(dev, stream).data_ptr(), _cycles_ptr(PASS_CYCLES, len(PASSES), dev), b,
                              n_substeps, iterations, stream)
     if err != 0:
         raise RuntimeError(f"dense kernel launch failed: {lib.kernel_error_string(err).decode()}")
@@ -224,11 +255,19 @@ def run_dense(scalars: Tensor, rows: Tensor, **kw) -> Tensor:
 # Launch wrapper
 # ---------------------------------------------------------------------------
 
+_SCALARS: dict[tuple, Tensor] = {}
+
+
 def _scalar_block(ps: PhysicsState, params: PhysicsParams, dt, n_substeps: int) -> Tensor:
-    t = lambda v: torch.as_tensor(v, dtype=torch.float32, device=ps.device).reshape(-1)
-    return torch.cat([
-        t(dt), t(params.gravity), t(params.baumgarte), t(params.penetration_slop), t(MARGIN), t(float(n_substeps)),
-    ])
+    """The (8,) scalar block on the state's device, made once per (device,
+    values): the dense runner's call repeats the same block every frame, and
+    the kernel only reads it."""
+    vals = (float(dt), *map(float, params.gravity), float(params.baumgarte), float(params.penetration_slop), MARGIN,
+            float(n_substeps))
+    key = (ps.device, vals)
+    if key not in _SCALARS:
+        _SCALARS[key] = torch.tensor(vals, dtype=torch.float32, device=ps.device)
+    return _SCALARS[key]
 
 
 def _input_rows(ps: PhysicsState) -> Tensor:

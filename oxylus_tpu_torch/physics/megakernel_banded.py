@@ -29,8 +29,10 @@ and input rows:
   tensors, the column sums taken chunk by chunk in chunk order as the TPU
   kernel does. The wrapper uses it for tensors on the CPU; `chip_smoke.py`
   holds the CUDA kernel against it on the card.
-- the CUDA kernel in `csrc/megakernel_banded.cu`, for tensors on a card.
-  There is no fallback: a CUDA tensor reaches the kernel or the call raises.
+- the CUDA kernel in `csrc/megakernel_banded.cu`, for tensors on a card: one
+  persistent cooperative launch a call, a warp per body summing only its
+  live pairs. There is no fallback: a CUDA tensor reaches the kernel or the
+  call raises.
 
 `megakernel_substeps_banded` wraps either with the stable slab-rank sort, the
 permutation, the scalar block and the inverse permutation. `LAUNCHES` counts
@@ -70,7 +72,7 @@ def slab_rank_key(ps: PhysicsState, exclude: Tensor | None = None) -> Tensor:
     eff_half = torch.maximum(torch.amax(ps.half_extent, dim=1), ps.radius)
     cell = 2.2 * torch.sum(eff_half * actf) / n  # ≈ 1.1 × mean diameter
     cell = torch.clamp(cell, min=1e-3)
-    big = torch.tensor(3e9, dtype=torch.float32, device=ps.device)
+    big = 3e9  # a Python scalar: a tensor made from it would be a blocking copy to the card
     lo_x = torch.amin(torch.where(act, ps.pos[:, 0], big))
     lo_z = torch.amin(torch.where(act, ps.pos[:, 2], big))
     hi_z = torch.amax(torch.where(act, ps.pos[:, 2], -big))
@@ -190,6 +192,26 @@ def _permute_state(ps: PhysicsState, perm: Tensor) -> PhysicsState:
 # kernel launches made by `megakernel_substeps_banded` (one per call that ran
 # on a card); read and reset by callers that must prove the kernel ran
 LAUNCHES = 0
+
+# What `PASS_CYCLES` holds: the kernel's passes, then (named "warps: ...")
+# the sweep passes' warp time split.
+PASSES = ("pre", "geom", "lists", "sweep", "sleep", "warps: pairs", "warps: sums")
+# None, or an int64 tensor of len(PASSES) on the card: while it is set, every
+# call adds each pass kind's SM cycles (block 0's, barrier to barrier) to it,
+# so a profiler can split the one launch (`profile_flagship`), and its sweep
+# warps' cycles in the pair impulses and in the body's sums with its plane
+# points (what the first port's k_solve_pairs and k_solve_bodies did), summed
+# over warps.
+PASS_CYCLES: Tensor | None = None
+
+
+def _cycles_ptr(cycles: Tensor | None, n: int, dev: torch.device) -> int | None:
+    """The device pointer of a pass-cycle tensor (or None), after checking it."""
+    if cycles is None:
+        return None
+    if cycles.dtype != torch.int64 or cycles.shape != (n,) or cycles.device != dev:
+        raise ValueError(f"pass cycles must be an int64 tensor of {n} on {dev}")
+    return cycles.data_ptr()
 
 
 def slab_starts(b: int) -> list[int]:
@@ -548,8 +570,9 @@ def banded_substeps_reference(
 def _banded_cuda(
     scalars: Tensor, rows: Tensor, *, n_substeps: int, iterations: int, warm: float, geom_every: int, sleep: bool,
 ) -> Tensor:
-    """Launch the CUDA kernel pipeline on PyTorch's current stream. Raises on a
-    build or launch error; never falls back."""
+    """Launch the CUDA kernel on PyTorch's current stream: one cooperative
+    launch for the whole call. Raises on a build or launch error; never falls
+    back."""
     from .._build import load_kernel_library
     from .megakernel_compact import N_ROWS, N_SCALARS
 
@@ -564,8 +587,9 @@ def _banded_cuda(
     out = torch.empty((N_OUT, b), dtype=torch.float32, device=rows.device)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = lib.banded_substeps(
-        scalars.data_ptr(), rows.data_ptr(), out.data_ptr(), ws.data_ptr(), b, n_substeps, iterations,
-        ctypes.c_float(warm), geom_every, int(sleep), stream,
+        scalars.data_ptr(), rows.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        _cycles_ptr(PASS_CYCLES, len(PASSES), rows.device), b, n_substeps, iterations, ctypes.c_float(warm),
+        geom_every, int(sleep), stream,
     )
     if err != 0:
         raise RuntimeError(f"banded kernel launch failed: {lib.kernel_error_string(err).decode()}")

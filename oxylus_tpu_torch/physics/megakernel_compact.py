@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from .megakernel_banded import (
@@ -665,20 +666,25 @@ def run_compact(scalars: Tensor, rows: Tensor, **kw) -> Tensor:
 # Launch wrapper
 # ---------------------------------------------------------------------------
 
+_SCALARS: dict[tuple, tuple[Tensor, Tensor]] = {}
+
+
 def _scalar_block(ps: PhysicsState, params: PhysicsParams, dt, n_substeps, geom_every, plane_block):
-    dev = ps.device
-    t = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
-    sleep_v = t(params.sleep_velocity)
-    return torch.cat(
-        [
-            t(dt), t(params.gravity[0]), t(params.gravity[1]), t(params.gravity[2]),
-            t(params.baumgarte), t(params.penetration_slop),
-            t(0.04 * geom_every),  # AABB margin scales with the geometry stride
-            t(float(n_substeps)),
-            plane_block.to(torch.float32),
-            sleep_v * sleep_v, t(params.sleep_time),
-        ]
-    )
+    """The (74,) scalar block: the host scalars around the device's plane
+    block. The host parts are made on the device once per (device, values):
+    a copy from host memory waits for the card's queue, so a call that made
+    them anew could not overlap the previous call's kernel."""
+    f32 = np.float32
+    sleep_v = f32(params.sleep_velocity)
+    head = (float(dt), *map(float, params.gravity), float(params.baumgarte), float(params.penetration_slop),
+            0.04 * geom_every,  # AABB margin scales with the geometry stride
+            float(n_substeps))
+    tail = (float(sleep_v * sleep_v), float(params.sleep_time))  # the square rounded in float32, as on the card
+    key = (ps.device, head, tail)
+    if key not in _SCALARS:
+        _SCALARS[key] = tuple(torch.tensor(v, dtype=torch.float32, device=ps.device) for v in (head, tail))
+    h, t = _SCALARS[key]
+    return torch.cat([h, plane_block.to(torch.float32), t])
 
 
 def _input_rows(sp: PhysicsState, hub_sorted: Tensor) -> Tensor:

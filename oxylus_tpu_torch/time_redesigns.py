@@ -1,7 +1,9 @@
 """Times the depth raster (`ops/csrc/raster_depth.cu`), the compact
 rigid-body kernel (`physics/csrc/megakernel_compact.cu`), the tile G-buffer
-raster (`ops/csrc/raster_tiles.cu`) and HiZ (`ops/csrc/hiz.cu`) at the main
-path's shapes on one card, for this checkout or another one:
+raster (`ops/csrc/raster_tiles.cu`), HiZ (`ops/csrc/hiz.cu`) and the banded
+and dense rigid-body kernels (`physics/csrc/megakernel_banded.cu`,
+`megakernel_dense.cu`) at the main path's shapes on one card, for this
+checkout or another one:
 
     python -m oxylus_tpu_torch.time_redesigns
     python oxylus_tpu_torch/time_redesigns.py --tree DIR   # DIR's oxylus_tpu_torch
@@ -34,14 +36,30 @@ Prints the card's name and power limit, then one JSON object:
   back to back after one warm-up, and per call in a CUDA graph of REPS calls.
   Each call is first held exactly (depth bits, vid, G-buffer bits; every HiZ
   level) against its plain version.
+- `banded_physics_ms`: a banded 60-substep call from the flagship's start
+  state in the bench's configuration (3 iterations, warm 0.7, geometry every
+  2 substeps); `dense_main_ms`: the dense runner's call (one substep, 10
+  iterations) on the pile the headless dense runner reaches after 62 frames
+  of the flagship (`chip_smoke.py` phase 7's); `dense_physics_ms`: a dense
+  60-substep call from the flagship's start state (the `physics` cell's dense
+  route). Each by CUDA events over REPS calls of the wrapper after one
+  warm-up, first run through its plain version on the same inputs: the
+  state's largest difference and the sleep flags that differ are printed
+  (`chip_smoke.py` holds them to their bounds). `*_launch_ms`: the same
+  call's kernel launch alone (the arguments the wrapper passed it, without
+  the wrapper's PyTorch ops); `banded_passes`, `dense_passes` (where the
+  checkout's kernels split their launch, `PASS_CYCLES`): the SM cycles of
+  one launch of the 60-substep calls by pass.
 - `physics_rate`, `physics10k_rate`: the bench cells' body-steps/s
   (`bench.run_physics`, `bench.run_physics10k`; their gates hold or they
-  raise).
+  raise); `banded_rate`, `dense_rate`: the `physics` cell's body-steps/s on
+  its banded and dense routes (`bench.bench_physics(kernel=...)`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,6 +98,24 @@ def graph_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+PLAIN = {"megakernel_banded": ("run_banded", "banded_substeps_reference"),
+         "megakernel": ("run_dense", "dense_substeps_reference")}
+CUDA = {"megakernel_banded": "_banded_cuda", "megakernel": "_dense_cuda"}  # the launch a dispatch makes
+
+
+@contextlib.contextmanager
+def plain_on(mod):
+    """Route a kernel module's dispatch (`run_banded`, `run_dense`) to its plain
+    version for card tensors while the block runs."""
+    name, plain = PLAIN[mod.__name__.rsplit(".", 1)[1]]
+    saved = getattr(mod, name)
+    setattr(mod, name, getattr(mod, plain))
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None, help="the checkout whose oxylus_tpu_torch is timed")
@@ -97,6 +133,8 @@ def main(argv: list[str]) -> int:
     from oxylus_tpu_torch.flagship import build_flagship
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.ops import hiz, raster3d, raster_depth
+    from oxylus_tpu_torch.physics import megakernel as mk
+    from oxylus_tpu_torch.physics import megakernel_banded as mb
     from oxylus_tpu_torch.physics import megakernel_compact as mc
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
     from oxylus_tpu_torch.physics.state import PhysicsParams
@@ -200,9 +238,55 @@ def main(argv: list[str]) -> int:
         out[f"{key}_ms"], out[f"{key}_check"] = compact_ms(
             ps, params, n_substeps=60, iterations=3, warm=0.7, geom_every=2, band=band, n_planes=count_hub_planes(ps))
 
+    # ---- the banded and the dense kernel: the physics cell's shapes and the dense runner's call ----
+    def routed_ms(key, mod, call):
+        got = call()
+        with plain_on(mod):
+            want = call()
+        fields = ("pos", "linvel", "angvel", "quat")
+        out[f"{key}_check"] = {"err": max((getattr(got, f) - getattr(want, f)).abs().max().item() for f in fields),
+                               "flips": int((got.asleep != want.asleep).sum())}
+        out[f"{key}_ms"] = cuda_ms(torch, call)
+        run, cuda = PLAIN[mod.__name__.rsplit(".", 1)[1]][0], CUDA[mod.__name__.rsplit(".", 1)[1]]
+        dispatch, raw = getattr(mod, run), []
+        setattr(mod, run, lambda *a, **k: (raw.append((a, k)), dispatch(*a, **k))[1])
+        try:
+            call()
+        finally:
+            setattr(mod, run, dispatch)
+        launch = lambda: getattr(mod, cuda)(*raw[0][0], **raw[0][1])
+        out[f"{key}_launch_ms"] = cuda_ms(torch, launch)
+        return launch
+
+    def passes(mod, launch):
+        mod.PASS_CYCLES = torch.zeros(len(mod.PASSES), dtype=torch.int64, device=dev)
+        try:
+            launch()
+            torch.cuda.synchronize()
+            return dict(zip(mod.PASSES, mod.PASS_CYCLES.tolist()))
+        finally:
+            mod.PASS_CYCLES = None
+
+    flag = build_flagship(device=dev).physics_state
+    params = PhysicsParams()
+    for key, mod, call in (
+        ("banded_physics", mb, lambda: mb.megakernel_substeps_banded(flag, params, DT, n_substeps=60, iterations=3,
+                                                                    warm=0.7, geom_every=2)),
+        ("dense_physics", mk, lambda: mk.megakernel_substeps(flag, params, DT, n_substeps=60)),
+    ):
+        launch = routed_ms(key, mod, call)
+        if hasattr(mod, "PASS_CYCLES"):
+            out[f"{key.split('_')[0]}_passes"] = passes(mod, launch)
+    dense_runner = SceneRunner(build_flagship(device=dev), render_mode="none", use_megakernel=True)
+    dense_runner.run(62)
+    pile = dense_runner.ps
+    routed_ms("dense_main", mk, lambda: mk.megakernel_substeps(pile, dense_runner.physics_params, DT, n_substeps=1))
+
     # ---- the bench cells ----
     out["physics_rate"] = bench.run_physics(device=dev)["value"]
     out["physics10k_rate"] = bench.run_physics10k(device=dev)["value"]
+    out["banded_rate"] = bench.bench_physics(kernel="banded", device=dev)["rate"]
+    out["dense_rate"] = bench.bench_physics(kernel="dense", device=dev)["rate"]
     print(json.dumps(out), flush=True)
     return 0
 
