@@ -35,7 +35,9 @@
 // - a sweep: its lanes take the body's partners, each evaluating the
 //   velocity-dependent impulse of the pair with the body as row (-j, -r_a × j)
 //   and of the pair with it as column (+j, +r_b × j) from the cached
-//   contacts; the lanes' sums meet in a fixed shuffle tree. Velocities and
+//   contacts, summed per manifold slot and per side (row, column) as the
+//   plain version sums them; each slot's lane sums meet in a fixed shuffle
+//   tree, then the slots are added in order (see `SlotSums`). Velocities and
 //   poses are read from one buffer and written to the other, so the last
 //   sweep also integrates and starts the next substep.
 // A body with more than CAP partners keeps none: its partners compute its
@@ -245,16 +247,30 @@ __device__ void load_contact(const float* g, const Args& A, int a, int k, Contac
   }
 }
 
-// Impulses of the ordered pair (row body a, column body c) for one sweep from
-// its contact: Σ_points j, Σ r_a × j and Σ r_c × j.
-__device__ void pair_impulse(const Contact& G, const float* vin, int b, int a, int c, float jsum[3], float tqa[3],
-                             float tqc[3]) {
+// A body's impulse terms in one sweep, kept per manifold slot as the plain
+// version keeps them: it sums each slot over all partners (a (B, B) sum per
+// slot), then the slots in order, the body's terms as row body (racc) apart
+// from its terms as column body (cacc). Grouped another way (a pair's slots
+// first, row and column terms together) the `physics` cell's 60-substep call
+// from the flagship's start ends ~0.1 m/s from the plain version: the pile
+// there amplifies rounding (`time_redesigns.py` prints the plain version's own
+// spread under a 1e-6 m/s nudge, `dense_physics_nudge`).
+struct SlotSums {
+  float j[4][3];  // Σ over partners of the slot's impulse
+  float t[4][3];  // Σ over partners of the slot's lever arm × impulse
+};
+
+// Adds the impulses of the ordered pair (row body a, column body c) for one
+// sweep from its contact into `S`, per slot: j and, with `row`, r_a × j, or
+// else r_c × j.
+__device__ __forceinline__ void pair_impulse(const Contact& G, const float* vin, int b, int a, int c, bool row,
+                                             SlotSums& S) {
   const float nx = G.n[0], ny = G.n[1], nz = G.n[2];
   const float va[3] = {vin[0 * b + a], vin[1 * b + a], vin[2 * b + a]};
   const float wa[3] = {vin[3 * b + a], vin[4 * b + a], vin[5 * b + a]};
   const float vc[3] = {vin[0 * b + c], vin[1 * b + c], vin[2 * b + c]};
   const float wc[3] = {vin[3 * b + c], vin[4 * b + c], vin[5 * b + c]};
-  for (int k = 0; k < 3; ++k) { jsum[k] = 0.f; tqa[k] = 0.f; tqc[k] = 0.f; }
+#pragma unroll
   for (int s = 0; s < 4; ++s) {
     const float kn = G.kn[s];
     if (!(kn > 0.f)) continue;
@@ -271,9 +287,9 @@ __device__ void pair_impulse(const Contact& G, const float* vin, int b, int a, i
     const float jx = nx * lam - tvx / tvl * lam_t;
     const float jy = ny * lam - tvy / tvl * lam_t;
     const float jz = nz * lam - tvz / tvl * lam_t;
-    jsum[0] += jx; jsum[1] += jy; jsum[2] += jz;
-    tqa[0] += ray * jz - raz * jy; tqa[1] += raz * jx - rax * jz; tqa[2] += rax * jy - ray * jx;
-    tqc[0] += rby * jz - rbz * jy; tqc[1] += rbz * jx - rbx * jz; tqc[2] += rbx * jy - rby * jx;
+    const float px = row ? rax : rbx, py = row ? ray : rby, pz = row ? raz : rbz;
+    S.j[s][0] += jx; S.j[s][1] += jy; S.j[s][2] += jz;
+    S.t[s][0] += py * jz - pz * jy; S.t[s][1] += pz * jx - px * jz; S.t[s][2] += px * jy - py * jx;
   }
 }
 
@@ -391,37 +407,48 @@ __device__ void sweep_body(const Args& A, int i, int lane, const float* bb, cons
     upd[4 + k] = rows[(I_IM3 + k) * b + i];
   }
   const int n = w.cnt[i];
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float js[3], ta[3], tc[3];
+  SlotSums rs, cs;  // the body's terms as row body and as column body
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rs.j[q][k] = rs.t[q][k] = cs.j[q][k] = cs.t[q][k] = 0.f;
   Contact G;
   if (n > CAP) {
     for (int j = lane; j < b; j += 32) {
       if (!pair_active(A, bb, i, j)) continue;
       contact_geo(A, bb, i, j, G);
-      pair_impulse(G, vin, b, i, j, js, ta, tc);  // i as row: -j, -r_a × j
-      for (int k = 0; k < 3; ++k) { acc[k] -= js[k]; acc[3 + k] -= ta[k]; }
+      pair_impulse(G, vin, b, i, j, true, rs);
       contact_geo(A, bb, j, i, G);
-      pair_impulse(G, vin, b, j, i, js, ta, tc);  // i as column: +j, +r_b × j
-      for (int k = 0; k < 3; ++k) { acc[k] += js[k]; acc[3 + k] += tc[k]; }
+      pair_impulse(G, vin, b, j, i, false, cs);
     }
   } else {
     for (int k = lane; k < n; k += 32) {
       const int c = w.list[size_t(i) * CAP + k];
       load_contact(w.geo, A, i, k, G);
-      pair_impulse(G, vin, b, i, c, js, ta, tc);
-      for (int q = 0; q < 3; ++q) { acc[q] -= js[q]; acc[3 + q] -= ta[q]; }
+      pair_impulse(G, vin, b, i, c, true, rs);
       const int at = w.rev[size_t(i) * CAP + k];
       if (at >= 0) load_contact(w.geo, A, c, at, G);
       else load_contact(w.cgeo, A, i, k, G);
-      pair_impulse(G, vin, b, c, i, js, ta, tc);
-      for (int q = 0; q < 3; ++q) { acc[q] += js[q]; acc[3 + q] += tc[q]; }
+      pair_impulse(G, vin, b, c, i, false, cs);
     }
   }
-  for (int k = 0; k < 6; ++k) acc[k] = warp_sum(acc[k]);
+  // each slot over the partners (a fixed tree over the lanes), then the slots in
+  // order: racc = 0 - S0 - S1 - S2 - S3 as row body, cacc = C0 + C1 + C2 + C3 as
+  // column body, the body's update racc + cacc (the plain version's sums)
+  float racc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, cacc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      racc[k] = racc[k] - warp_sum(rs.j[q][k]);
+      cacc[k] = cacc[k] + warp_sum(cs.j[q][k]);
+      racc[3 + k] = racc[3 + k] - warp_sum(rs.t[q][k]);
+      cacc[3 + k] = cacc[3 + k] + warp_sum(cs.t[q][k]);
+    }
   if (lane == 0) {
     for (int k = 0; k < 3; ++k) {
-      vout[k * b + i] = own[k] + acc[k] * upd[0] * upd[1 + k] * mov;
-      vout[(3 + k) * b + i] = own[3 + k] + acc[3 + k] * upd[4 + k] * mov;
+      vout[k * b + i] = own[k] + (racc[k] + cacc[k]) * upd[0] * upd[1 + k] * mov;
+      vout[(3 + k) * b + i] = own[3 + k] + (racc[3 + k] + cacc[3 + k]) * upd[4 + k] * mov;
     }
   }
 }

@@ -18,7 +18,9 @@
 // the SMs' float32 rate.
 //
 // What the design does about it: one block per row (per column for the axis-0
-// scan, which reads with the row stride), coalesced along the row. The scan is
+// scan, which reads with the row stride), coalesced along the row; the roll a
+// thread per 16-byte chunk of the output where the rows allow it (else per
+// element), 256 a block over several rows. The scan is
 // a Hillis-Steele scan by shuffles in each warp, then of the warp totals, the
 // order oxylus_tpu_torch/probes/mosaic_ops.py::cumsum_reference repeats, so the
 // two agree bit for bit. The sort is a bitonic network of the next power of two
@@ -37,6 +39,7 @@ constexpr int MAX_LINE = 1024;
 constexpr int MAX_SORT = 2048;
 constexpr int GATHER_THREADS = 128;
 constexpr int ARGMAX_THREADS = 256;
+constexpr int ROLL_THREADS = 256;  // output chunks a block of the roll
 constexpr uint32_t NAN_KEY = 0xfffffffeu;  // above +inf's key 0xff800000
 constexpr uint32_t PAD_KEY = 0xffffffffu;
 
@@ -170,13 +173,38 @@ __global__ void __launch_bounds__(ARGMAX_THREADS) argmax_kernel(const float* __r
   }
 }
 
-// out[r, j] = x[r, (j - shift) mod n], shift in [0, n).
-__global__ void roll_lanes_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int shift) {
-  const size_t r = (size_t)blockIdx.x * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int src = j >= shift ? j - shift : j - shift + n;
-    out[r + j] = x[r + src];
+// out[r, j] = x[r, (j - shift) mod n], shift in [0, n). One output chunk a
+// thread, so every load is issued at once (a thread that walks several
+// chunks waits a round trip for each). With `vec` (n % 4 ==
+// 0, both bases 16-byte aligned) a chunk is a float4: output chunk q of a row
+// starts at source element s + 4q (mod n), s = (n - shift) mod n = 4·c0 + o,
+// so it is elements o.. of source chunk c0 + q and ..o-1 of the next (both
+// mod n / 4); o is the same in every thread, so the select does not diverge.
+// Otherwise (n % 4 != 0 or a misaligned base) a chunk is one element.
+__global__ void __launch_bounds__(ROLL_THREADS) roll_lanes_kernel(const float* __restrict__ x,
+                                                                 float* __restrict__ out, int rows, int n, int shift,
+                                                                 bool vec) {
+  const size_t e = (size_t)blockIdx.x * ROLL_THREADS + threadIdx.x;
+  if (!vec) {
+    if (e >= (size_t)rows * n) return;
+    const size_t row = e / n * n;
+    const int j = (int)(e - row);
+    out[e] = x[row + (j >= shift ? j - shift : j - shift + n)];
+    return;
   }
+  const int nc = n / 4;
+  if (e >= (size_t)rows * nc) return;
+  const size_t row = e / nc * nc;  // the row's first chunk
+  const int q = (int)(e - row), s = shift == 0 ? 0 : n - shift, o = s & 3;
+  const float4* x4 = reinterpret_cast<const float4*>(x) + row;
+  int c = (s >> 2) + q;
+  if (c >= nc) c -= nc;
+  const float4 a = x4[c];
+  const float4 b = x4[c + 1 == nc ? 0 : c + 1];
+  reinterpret_cast<float4*>(out)[e] = o == 0   ? a
+                                      : o == 1 ? make_float4(a.y, a.z, a.w, b.x)
+                                      : o == 2 ? make_float4(a.z, a.w, b.x, b.y)
+                                               : make_float4(a.w, b.x, b.y, b.z);
 }
 
 // Each operation rounded to bf16, as PyTorch's separate bf16 ops do.
@@ -238,7 +266,10 @@ int probe_argmax_rows(const void* x, void* out, int rows, int n, void* stream) {
 // x (rows, n) f32 rolled by shift in [0, n) along lanes.
 int probe_roll_lanes(const void* x, void* out, int rows, int n, int shift, void* stream) {
   if (rows <= 0 || n <= 0 || shift < 0 || shift >= n) return (int)cudaErrorInvalidValue;
-  roll_lanes_kernel<<<rows, GATHER_THREADS, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n, shift);
+  const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const size_t chunks = (size_t)rows * (vec ? n / 4 : n);
+  roll_lanes_kernel<<<(unsigned)((chunks + ROLL_THREADS - 1) / ROLL_THREADS), ROLL_THREADS, 0,
+                      (cudaStream_t)stream>>>((const float*)x, (float*)out, rows, n, shift, vec);
   return (int)last_error();
 }
 

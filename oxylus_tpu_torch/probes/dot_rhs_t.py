@@ -7,10 +7,11 @@ row `vcat`, splits it into `hi = bf16(vcat)` and `lo = bf16(vcat - hi)`, stacks
 the pair 6 times into 12 rows (even rows hi, odd rows lo) and multiplies them
 by `m`ᵀ with float32 accumulation: (12, 1024)·(384, 1024)ᵀ → (12, 384). So
 `out[0] + out[1]` is `vcat·m`ᵀ to about 16 bits. `dot_rhs_t` computes that: on
-a CUDA tensor by the kernel `csrc/dot_rhs_t.cu` (tensor cores through
-`mma.sync`, the split done as it loads), on a CPU tensor by
-`dot_rhs_t_reference`. The products are exact in float32; the sums are taken
-in another order on each side, so the two agree within `sum_order_bound`.
+a CUDA tensor by the kernel `csrc/dot_rhs_t.cu`, on a CPU tensor by
+`dot_rhs_t_reference`. The kernel splits K into 8 slices of 128, one warp
+each, sums each slice in 16-wide `mma.sync` steps and adds the slices in order.
+The products are exact in float32; the sums are taken in another order on each
+side, so the two agree within `sum_order_bound`.
 """
 
 from __future__ import annotations

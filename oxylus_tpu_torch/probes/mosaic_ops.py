@@ -266,7 +266,8 @@ def seeded_cases(seed: int, device=None) -> list[tuple[str, str, tuple]]:
     """The ten cases on seeded normal data at the script's shapes, in its order
     (indices in [-n - 16, n + 16), so wrapped and out-of-range ones too; rows
     with ties, and NaN in two entries for the sort and argmax), then the scan,
-    sort and roll at an odd width and other shifts."""
+    sort and roll at an odd width and other shifts, and rolls of rows whose
+    width is not a multiple of 4."""
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     rng = np.random.default_rng(seed)
@@ -292,6 +293,10 @@ def seeded_cases(seed: int, device=None) -> list[tuple[str, str, tuple]]:
         ("seeded sort axis=1 (37,1000)", "sort", (t(odd),)),
         ("seeded roll shift=-133", "roll_lanes", (t(x), -133)),
         ("seeded roll (37,1000) shift=517", "roll_lanes", (t(odd), 517)),
+        # widths that are not a multiple of 4: the roll kernel's element path
+        ("seeded roll (5,383) shift=0", "roll_lanes", (t(odd[:5, :383]), 0)),
+        ("seeded roll (5,383) shift=382", "roll_lanes", (t(odd[:5, :383]), 382)),
+        ("seeded roll (1,7) shift=3", "roll_lanes", (t((rng.normal(size=(1, 7)) * 3.0).astype(np.float32)), 3)),
     ]
 
 

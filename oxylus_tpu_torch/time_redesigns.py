@@ -5,8 +5,12 @@ and dense rigid-body kernels (`physics/csrc/megakernel_banded.cu`,
 `megakernel_dense.cu`) at the main path's shapes on one card, for this
 checkout or another one:
 
-    python -m oxylus_tpu_torch.time_redesigns
-    python oxylus_tpu_torch/time_redesigns.py --tree DIR   # DIR's oxylus_tpu_torch
+    python -m oxylus_tpu_torch.time_redesigns [SECTION ...]
+    python oxylus_tpu_torch/time_redesigns.py --tree DIR [SECTION ...]   # DIR's oxylus_tpu_torch
+
+SECTION names what to time, all of it when none is named: `kernels` (the
+main path's and the physics cell's kernels and the bench rates below),
+`dot_rhs_t` and `roll_lanes` (the probes 9a and 9c's roll).
 
 The second form (only as a file: `-m` has imported this checkout's package
 already) imports the package from DIR (for example a `git archive` of
@@ -44,29 +48,44 @@ Prints the card's name and power limit, then one JSON object:
   60-substep call from the flagship's start state (the `physics` cell's dense
   route). Each by CUDA events over REPS calls of the wrapper after one
   warm-up, first run through its plain version on the same inputs: the
-  state's largest difference and the sleep flags that differ are printed
-  (`chip_smoke.py` holds them to their bounds). `*_launch_ms`: the same
+  state's largest difference (`err`, and per field) and the sleep flags that
+  differ are printed (`chip_smoke.py` holds them to their bounds). `*_launch_ms`: the same
   call's kernel launch alone (the arguments the wrapper passed it, without
   the wrapper's PyTorch ops); `banded_passes`, `dense_passes` (where the
   checkout's kernels split their launch, `PASS_CYCLES`): the SM cycles of
-  one launch of the 60-substep calls by pass.
+  one launch of the 60-substep calls by pass. `dense_physics_nudge`: the
+  plain version's own spread over the dense 60-substep call, the largest
+  difference per field after 1e-6 m/s is added to every dynamic body's
+  linear velocity.
 - `physics_rate`, `physics10k_rate`: the bench cells' body-steps/s
   (`bench.run_physics`, `bench.run_physics10k`; their gates hold or they
   raise); `banded_rate`, `dense_rate`: the `physics` cell's body-steps/s on
   its banded and dense routes (`bench.bench_physics(kernel=...)`).
+- `dot_rhs_t_us`: the probe 9a on the script's inputs, µs per call in a
+  CUDA graph of PROBE_REPS calls (`probes.time_us`); `matmul_us`:
+  `torch.matmul` of the split rows, made beforehand, by mᵀ, timed the same
+  way; the kernel's ratio to it. The call is first held within
+  `sum_order_bound`. `roll_lanes_us`: 9c's roll of the script's (128, 384)
+  block by 5, and `torch_roll_us`, `torch.roll`'s, with the ratio; the roll
+  is first held exactly equal to `torch.roll` on the script's and the seeded
+  cases.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 REPS = 20
+PROBE_REPS = 200  # calls in the probes' CUDA graph, as `chip_smoke.py` phase 14
 DT = 1.0 / 60.0
+SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes")
+FIELDS = ("pos", "linvel", "angvel", "quat")
 
 
 def cuda_ms(torch, fn, reps: int = REPS) -> float:
@@ -119,7 +138,9 @@ def plain_on(mod):
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None, help="the checkout whose oxylus_tpu_torch is timed")
+    ap.add_argument("sections", nargs="*", choices=SECTIONS, help="what to time (all when none is named)")
     args = ap.parse_args(argv)
+    want = set(args.sections or SECTIONS)
     here = Path(__file__).resolve().parent
     sys.path[:] = [p for p in sys.path if Path(p or ".").resolve() != here]  # run as a file: not the package dir
     if args.tree:
@@ -137,7 +158,7 @@ def main(argv: list[str]) -> int:
     from oxylus_tpu_torch.physics import megakernel_banded as mb
     from oxylus_tpu_torch.physics import megakernel_compact as mc
     from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
-    from oxylus_tpu_torch.physics.state import PhysicsParams
+    from oxylus_tpu_torch.physics.state import BODY_DYNAMIC, PhysicsParams
     from oxylus_tpu_torch.runtime import SceneRunner
 
     dev = torch.device("cuda", 0)
@@ -145,6 +166,11 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     out = {"tree": args.tree or ".", "package": raster_depth.__file__, "card": card}
+    if "dot_rhs_t" in want or "roll_lanes" in want:
+        probes_section(torch, dev, out, want)
+    if "kernels" not in want:
+        print(json.dumps(out), flush=True)
+        return 0
 
     # ---- the config-5 frame's captured calls: the depth raster's shadow levels, and the tile
     # raster's passes and HiZ of the first frame that runs the late pass ----
@@ -243,8 +269,8 @@ def main(argv: list[str]) -> int:
         got = call()
         with plain_on(mod):
             want = call()
-        fields = ("pos", "linvel", "angvel", "quat")
-        out[f"{key}_check"] = {"err": max((getattr(got, f) - getattr(want, f)).abs().max().item() for f in fields),
+        errs = {f: (getattr(got, f) - getattr(want, f)).abs().max().item() for f in FIELDS}
+        out[f"{key}_check"] = {"err": max(errs.values()), "fields": errs,
                                "flips": int((got.asleep != want.asleep).sum())}
         out[f"{key}_ms"] = cuda_ms(torch, call)
         run, cuda = PLAIN[mod.__name__.rsplit(".", 1)[1]][0], CUDA[mod.__name__.rsplit(".", 1)[1]]
@@ -277,6 +303,12 @@ def main(argv: list[str]) -> int:
         launch = routed_ms(key, mod, call)
         if hasattr(mod, "PASS_CYCLES"):
             out[f"{key.split('_')[0]}_passes"] = passes(mod, launch)
+    # the plain version's own spread over that call: 1e-6 m/s added to every dynamic body's velocity
+    dynamic = ((flag.body_type == BODY_DYNAMIC) & flag.active)[:, None]
+    nudged = dataclasses.replace(flag, linvel=flag.linvel + 1e-6 * dynamic)
+    with plain_on(mk):
+        base, moved = (mk.megakernel_substeps(ps, params, DT, n_substeps=60) for ps in (flag, nudged))
+    out["dense_physics_nudge"] = {f: (getattr(moved, f) - getattr(base, f)).abs().max().item() for f in FIELDS}
     dense_runner = SceneRunner(build_flagship(device=dev), render_mode="none", use_megakernel=True)
     dense_runner.run(62)
     pile = dense_runner.ps
@@ -289,6 +321,31 @@ def main(argv: list[str]) -> int:
     out["dense_rate"] = bench.bench_physics(kernel="dense", device=dev)["rate"]
     print(json.dumps(out), flush=True)
     return 0
+
+
+def probes_section(torch, dev, out, want) -> None:
+    """The probes 9a and 9c's roll against their PyTorch calls (see the module's docstring)."""
+    from oxylus_tpu_torch import probes
+    from oxylus_tpu_torch.probes import dot_rhs_t, mosaic_ops
+
+    us = lambda fn: probes.time_us(fn, dev, PROBE_REPS)[0]
+    if "dot_rhs_t" in want:
+        v, m = dot_rhs_t.script_inputs(dev)
+        diff = (dot_rhs_t.dot_rhs_t(v, m).double() - dot_rhs_t.dot_rhs_t_reference(v, m).double()).abs()
+        if not bool((diff <= dot_rhs_t.sum_order_bound(v, m)).all()):
+            raise RuntimeError("dot_rhs_t: kernel outside the sum-order bound of its plain version")
+        vals, mt = dot_rhs_t.split_rows(v), m.t()
+        out["matmul_us"] = us(lambda: torch.matmul(vals, mt))
+        out["dot_rhs_t_us"] = us(lambda: dot_rhs_t.dot_rhs_t(v, m))
+        out["dot_rhs_t_to_matmul"] = out["dot_rhs_t_us"] / out["matmul_us"]
+    if "roll_lanes" in want:
+        for name, kernel, args in mosaic_ops.script_cases(dev) + mosaic_ops.seeded_cases(41, dev):
+            if kernel == "roll_lanes" and not torch.equal(mosaic_ops.roll_lanes(*args), torch.roll(args[0], args[1], 1)):
+                raise RuntimeError(f"roll_lanes != torch.roll on {name}")
+        x = next(args[0] for _, kernel, args in mosaic_ops.script_cases(dev) if kernel == "roll_lanes")
+        out["torch_roll_us"] = us(lambda: torch.roll(x, 5, 1))
+        out["roll_lanes_us"] = us(lambda: mosaic_ops.roll_lanes(x, 5))
+        out["roll_lanes_to_torch_roll"] = out["roll_lanes_us"] / out["torch_roll_us"]
 
 
 if __name__ == "__main__":
