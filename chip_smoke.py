@@ -323,17 +323,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, name: str) -> tuple[int, int]:
+def device_kernels(fn, name: str, attempts: int = 3) -> tuple[int, int]:
     """Device work of one call of `fn`, traced by torch.profiler (CUPTI) after
     a warm-up call: the kernels whose name holds `name`, and all device
-    activities (the wrapper's PyTorch ops and copies included)."""
+    activities (the wrapper's PyTorch ops and copies included). A trace that
+    recorded no device activity at all saw nothing, and is taken again, up to
+    `attempts` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     return sum(name in n for n in names), len(names)
 
 
@@ -536,6 +541,65 @@ def seeded_group_inputs(seed, tile, n_slots, with_near, band, dev):
     cnt = (tl >= 0).sum(1)
     check(int(cnt.max()) == 64 and bool((cnt == 0).any()), f"seeded group inputs {seed}: no full or empty list")
     return rows, tl, near, WIDTH, h, n_slots, tile, base
+
+
+def seeded_blend_inputs(seed, w, h, k, n_sprites, with_depth, dev, tint_lo=0.3):
+    """Packed blend inputs at a main path's shapes (w×h, K = k), made from
+    a seed: rotated sprites of assorted sizes, random texel planes from
+    transparent to opaque, random tints in [tint_lo, 1), every 4th
+    untextured, every 3rd alpha-masked at 0.45, every 2nd flipped; every
+    8th untextured of alpha 0.5, axis-aligned, 15 px, at a half-pixel
+    corner, so that texel coordinates fall on integers and alphas on the
+    id's 0.5 threshold; a cluster crowds the first tile past K and the right
+    part of the image stays empty; with `with_depth` record and scene depths
+    in eighths, so that some tie. On `dev`."""
+    from oxylus_tpu_torch.ops import blend2d
+
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=g)
+    n_crowd = k + 16
+    cx = torch.cat([4 + 24 * rnd(n_crowd), 0.8 * w * rnd(n_sprites - n_crowd)])
+    cy = torch.cat([4 + 24 * rnd(n_crowd), h * rnd(n_sprites - n_crowd)])
+    sx, sy = 4 + w / 16 * rnd(n_sprites), 4 + w / 16 * rnd(n_sprites)
+    th = (2 * rnd(n_sprites) - 1) * torch.pi
+    i = torch.arange(n_sprites)
+    axis = i % 8 == 7
+    th[axis], sx[axis], sy[axis] = 0.0, 15.0, 15.0
+    cx[axis], cy[axis] = cx[axis].round(), cy[axis].round()
+    c, s = torch.cos(th), torch.sin(th)
+    e0x, e0y, e1x, e1y = c * sx, s * sx, -s * sy, c * sy
+    p00x, p00y = cx - 0.5 * (e0x + e1x), cy - 0.5 * (e0y + e1y)
+    rec = torch.zeros((n_sprites, 16))
+    rec[:, 0:7] = torch.stack([p00x, p00y, e0x, e0y, e1x, e1y, 1.0 / (e0x * e1y - e0y * e1x)], 1)
+    rec[:, 7:11] = tint_lo + (1 - tint_lo) * rnd(n_sprites, 4)
+    rec[axis, 10] = 0.5
+    rec[:, 11] = 0.45
+    rec[:, 12] = (i % 3 == 0).float()
+    rec[:, 13] = (i % 4 != 3).float()
+    rec[:, 14] = i.float()
+    rec[:, 15] = (i % 2 == 1).float()
+    xs = torch.stack([p00x, p00x + e0x, p00x + e1x, p00x + e0x + e1x])
+    ys = torch.stack([p00y, p00y + e0y, p00y + e1y, p00y + e0y + e1y])
+    tex = rnd(n_sprites, blend2d.TEX, blend2d.TEX, 4)
+    tex[..., 3] = torch.clamp(1.6 * rnd(n_sprites, blend2d.TEX, blend2d.TEX) - 0.3, 0, 1)
+    tx, ty = (w + blend2d.TILE - 1) // blend2d.TILE, (h + blend2d.TILE - 1) // blend2d.TILE
+    t = torch.arange(tx * ty)
+    x0, y0 = ((t % tx) * blend2d.TILE).float()[:, None], ((t // tx) * blend2d.TILE).float()[:, None]
+    hit = (xs.amax(0) >= x0) & (xs.amin(0) < x0 + blend2d.TILE) & (ys.amax(0) >= y0) \
+        & (ys.amin(0) < y0 + blend2d.TILE)
+    order = torch.where(hit, i, n_sprites).sort(1).values[:, :k]
+    tl = torch.where(order < n_sprites, order, -1).to(torch.int32)
+    rec_depth = torch.floor(8 * rnd(n_sprites)) / 8 if with_depth else None
+    sd = (torch.floor(8 * rnd(h, w)) / 8).to(dev) if with_depth else None
+    packed = blend2d.pack_blend_inputs(rec.to(dev), tex.to(dev), tl.to(dev),
+                                       None if rec_depth is None else rec_depth.to(dev))
+    tl_d, cnt, fields, _ = packed
+    live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
+    flip, cut = fields[..., 9][live], fields[..., 7][live]
+    check(int(cnt.max()) == k and bool((cnt == 0).any()) and bool((flip == 1).any())
+          and bool((flip == 0).any()) and bool((cut >= 0).any()) and bool((cut < 0).any()),
+          f"seeded blend inputs {w}x{h}: no full or empty tile, or no flipped or alpha-masked live entry")
+    return (*packed, w, h, sd)
 
 
 PROBE_REPS = 200  # timed launches per probe kernel (after one warm-up)
@@ -1617,26 +1681,43 @@ def main() -> int:
                     need[(plane + (v0 + dv) * blend2d.TEX + u0 + du)[use & (weight > 0)]] = True
         return int(need.sum())
 
-    def blend_vs_plain(label, args, timed=True):
+    def blend_vs_plain(label, args, timed=True, twice=False):
         """The blend kernel and its plain version on packed inputs: colour bits
-        and vid exactly equal. With `timed`, both timed and the bound from the
+        and vid exactly equal, and `blend2d.blend_skip_model` too; the grid,
+        the kernel's registers and occupancy, and the (entry, warp) pairs its
+        warps evaluate (the model's count) printed. With `twice`, a second launch
+        gives the same bits. With `timed`, both timed and the bound from the
         inputs (the live entries' fields and list slots, the texels they need,
         the scene depth and the outputs; the live pairs' operations)."""
         tl, cnt, fields, tex, w, h, sd = args
         got = blend2d.run_blend(*args)
         want = blend2d.blend_tiles_reference(*args)
+        m_color, m_vid, evaluated = blend2d.blend_skip_model(*args)
         torch.cuda.synchronize()
         c_bits = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
         v_diff = int((got[1] != want[1]).sum())
+        m_diff = int((m_color.view(torch.int32) != want[0].view(torch.int32)).sum() + (m_vid != want[1]).sum())
         err = (got[0] - want[0]).abs().max().item()
         pairs = int(cnt.sum())
+        info = blend2d.kernel_info(sd is not None, tl.shape[1])
         msg = (f"[{label}] {w}x{h}, {tl.shape[0]} tiles, {pairs} live (tile, entry) pairs, worst tile "
                f"{int(cnt.max())} entries, {int((cnt == 0).sum())} empty tiles, depth test {sd is not None}: "
-               f"colour bit mismatches {c_bits}, vid mismatches {v_diff}, max abs err {err}, alpha mean "
-               f"{got[0][..., 3].mean().item():.5f}, pixels with an id {int((got[1] >= 0).sum())}")
+               f"colour bit mismatches {c_bits}, vid mismatches {v_diff}, skip model mismatches {m_diff}, max abs "
+               f"err {err}, alpha mean {got[0][..., 3].mean().item():.5f}, pixels with an id "
+               f"{int((got[1] >= 0).sum())}; grid {tl.shape[0] * blend2d.TILE // blend2d.STRIP} CTAs of "
+               f"{blend2d.TILE * blend2d.STRIP} ({blend2d.TILE}x{blend2d.STRIP} pixels) after a 1-CTA tile order, "
+               f"{info['regs']} registers, {info['local_bytes']} B local, {info['smem_bytes']} B shared, "
+               f"{info['ctas_per_sm']} CTAs per SM; (entry, warp) pairs evaluated {evaluated} of "
+               f"{pairs * blend2d.WARPS}")
+        check(c_bits == 0 and v_diff == 0, f"{label}: blend kernel != plain")
+        check(m_diff == 0, f"{label}: the skip model != plain")
+        if twice:
+            again = blend2d.run_blend(*args)
+            same = torch.equal(again[0].view(torch.int32), got[0].view(torch.int32)) and torch.equal(again[1], got[1])
+            msg += f"; the same bits twice {same}"
+            check(same, f"{label}: two launches differ")
         if not timed:
             print(msg, flush=True)
-            check(c_bits == 0 and v_diff == 0, f"{label}: blend kernel != plain")
             return got, err
         texels = blend_texels_needed(*args)
         n_bytes = (pairs * (fields.shape[2] + 1) + cnt.numel() + texels * 4) * 4 \
@@ -1646,64 +1727,7 @@ def main() -> int:
         plain = cuda_ms(lambda: blend2d.blend_tiles_reference(*args), 3)
         print(f"{msg}; {texels} texels needed; kernel {ms:.4f} ms, plain {plain:.2f} ms, bound {bd[0]:.5f} ms "
               f"({bd[1]}) ({card})", flush=True)
-        check(c_bits == 0 and v_diff == 0, f"{label}: blend kernel != plain")
         return got, err, ms, plain, bd
-
-    def seeded_blend_inputs(seed, w, h, k, n_sprites, with_depth):
-        """Packed blend inputs at a main path's shapes (w×h, K = k), made from
-        a seed: rotated sprites of assorted sizes, random texel planes from
-        transparent to opaque, random tints, every 4th untextured, every 3rd
-        alpha-masked at 0.45, every 2nd flipped; every 8th untextured of
-        alpha 0.5, axis-aligned, 15 px, at a half-pixel corner, so that texel
-        coordinates fall on integers and alphas on the id's 0.5 threshold; a
-        cluster crowds the first tile past K and the right part of the image
-        stays empty; with `with_depth` record and scene depths in eighths, so
-        that some tie."""
-        g = torch.Generator().manual_seed(seed)
-        rnd = lambda *shape: torch.rand(shape, generator=g)
-        n_crowd = k + 16
-        cx = torch.cat([4 + 24 * rnd(n_crowd), 0.8 * w * rnd(n_sprites - n_crowd)])
-        cy = torch.cat([4 + 24 * rnd(n_crowd), h * rnd(n_sprites - n_crowd)])
-        sx, sy = 4 + w / 16 * rnd(n_sprites), 4 + w / 16 * rnd(n_sprites)
-        th = (2 * rnd(n_sprites) - 1) * torch.pi
-        i = torch.arange(n_sprites)
-        axis = i % 8 == 7
-        th[axis], sx[axis], sy[axis] = 0.0, 15.0, 15.0
-        cx[axis], cy[axis] = cx[axis].round(), cy[axis].round()
-        c, s = torch.cos(th), torch.sin(th)
-        e0x, e0y, e1x, e1y = c * sx, s * sx, -s * sy, c * sy
-        p00x, p00y = cx - 0.5 * (e0x + e1x), cy - 0.5 * (e0y + e1y)
-        rec = torch.zeros((n_sprites, 16))
-        rec[:, 0:7] = torch.stack([p00x, p00y, e0x, e0y, e1x, e1y, 1.0 / (e0x * e1y - e0y * e1x)], 1)
-        rec[:, 7:11] = 0.3 + 0.7 * rnd(n_sprites, 4)
-        rec[axis, 10] = 0.5
-        rec[:, 11] = 0.45
-        rec[:, 12] = (i % 3 == 0).float()
-        rec[:, 13] = (i % 4 != 3).float()
-        rec[:, 14] = i.float()
-        rec[:, 15] = (i % 2 == 1).float()
-        xs = torch.stack([p00x, p00x + e0x, p00x + e1x, p00x + e0x + e1x])
-        ys = torch.stack([p00y, p00y + e0y, p00y + e1y, p00y + e0y + e1y])
-        tex = rnd(n_sprites, blend2d.TEX, blend2d.TEX, 4)
-        tex[..., 3] = torch.clamp(1.6 * rnd(n_sprites, blend2d.TEX, blend2d.TEX) - 0.3, 0, 1)
-        tx, ty = (w + blend2d.TILE - 1) // blend2d.TILE, (h + blend2d.TILE - 1) // blend2d.TILE
-        t = torch.arange(tx * ty)
-        x0, y0 = ((t % tx) * blend2d.TILE).float()[:, None], ((t // tx) * blend2d.TILE).float()[:, None]
-        hit = (xs.amax(0) >= x0) & (xs.amin(0) < x0 + blend2d.TILE) & (ys.amax(0) >= y0) \
-            & (ys.amin(0) < y0 + blend2d.TILE)
-        order = torch.where(hit, i, n_sprites).sort(1).values[:, :k]
-        tl = torch.where(order < n_sprites, order, -1).to(torch.int32)
-        rec_depth = torch.floor(8 * rnd(n_sprites)) / 8 if with_depth else None
-        sd = (torch.floor(8 * rnd(h, w)) / 8).to(dev) if with_depth else None
-        packed = blend2d.pack_blend_inputs(rec.to(dev), tex.to(dev), tl.to(dev),
-                                           None if rec_depth is None else rec_depth.to(dev))
-        tl_d, cnt, fields, _ = packed
-        live = torch.arange(k, device=dev)[None, :] < cnt[:, None]
-        flip, cut = fields[..., 9][live], fields[..., 7][live]
-        check(int(cnt.max()) == k and bool((cnt == 0).any()) and bool((flip == 1).any())
-              and bool((flip == 0).any()) and bool((cut >= 0).any()) and bool((cut < 0).any()),
-              f"seeded blend inputs {w}x{h}: no full or empty tile, or no flipped or alpha-masked live entry")
-        return (*packed, w, h, sd)
 
     # ---- 10. config 2: the 2D runner ------------------------------------------------
     t0 = time.perf_counter()
@@ -1755,10 +1779,15 @@ def main() -> int:
     check(int(vid.min()) >= -1 and int(vid.max()) < n_ent and bool((vid >= 0).any()),
           f"2D vids in [{int(vid.min())}, {int(vid.max())}], not in [-1, {n_ent})")
     # config 2's planes are all one white, so also seeded, varied inputs at its packed shapes
-    seeded = seeded_blend_inputs(10, WIDTH, HEIGHT, blend_args[0][0].shape[1], blend2d.MAX_VISIBLE, False)
+    seeded = seeded_blend_inputs(10, WIDTH, HEIGHT, blend_args[0][0].shape[1], blend2d.MAX_VISIBLE, False, dev)
     got, err = blend_vs_plain("10: blend, seeded sprites", seeded, timed=False)
     err10 = max(err10, err)
     check(bool((got[1] >= 0).any()), "seeded 2D blend: no pixel took an id")
+    # crowded: a full K = 64 tile, tints down to -0.5 (negative colours and alphas)
+    crowded = seeded_blend_inputs(12, WIDTH, HEIGHT, blend_args[0][0].shape[1], blend2d.MAX_VISIBLE, False, dev,
+                                  tint_lo=-0.5)
+    err10 = max(err10, blend_vs_plain("10: blend, crowded sprites, negative tints", crowded, timed=False,
+                                      twice=True)[1])
 
     # ---- 11. config 3: the 3D frame with the particle composite ---------------------
     t0 = time.perf_counter()
@@ -1810,7 +1839,7 @@ def main() -> int:
     check(n_particles > 0, "no live particle in the config-3 frame")
     err11 = blend_vs_plain("11: depth-tested blend, last frame", blend_args[0])[1]
     # config 3's particles are one constant colour of alpha 0.35, so also seeded, varied inputs at its packed shapes
-    seeded = seeded_blend_inputs(11, lw, lh, tl.shape[1], 256, True)
+    seeded = seeded_blend_inputs(11, lw, lh, tl.shape[1], 256, True, dev)
     got, err = blend_vs_plain("11: depth-tested blend, seeded sprites", seeded, timed=False)
     err11 = max(err11, err)
     check(bool((got[1] >= 0).any()), "seeded depth-tested blend: no pixel took an id")
@@ -1920,7 +1949,8 @@ def main() -> int:
         call60()
     banded_kernel_ms = cuda_ms(lambda: mb._banded_cuda(*raw[0], n_substeps=60, sleep=False, **bench_kw), 10)
     banded_launches, banded_ops = device_kernels(call60, "k_banded")
-    check(banded_launches == 1, f"a banded call launched the banded kernel {banded_launches} times")
+    check(banded_launches == 1, f"a banded call launched the banded kernel {banded_launches} times "
+                                f"({banded_ops} device activities traced)")
     work = mb.pair_work(pile, geom_every=2)
     b = pile.num_slots
     n_rebuild, sweeps = 30, 60 * (bench_kw["iterations"] + 1)
@@ -2025,9 +2055,12 @@ def main() -> int:
     check(bool(torch.isfinite(ps.pos).all() and torch.isfinite(ps.linvel).all()), "group route: state not finite")
     check(min_y > FLOOR_MID_Y, "group route: a box fell through the floor")
 
-    def group_vs_plain(label, args, timed=True):
+    def group_vs_plain(label, args, timed=True, twice=False):
         """The group raster kernel and its plain version on the same inputs:
-        depth bits, vid and G-buffer bits exactly equal. With `timed`, both
+        depth bits, vid and G-buffer bits exactly equal; the grid, the
+        kernel's registers and occupancy, and the slot-pixels its warps
+        evaluate (`raster_groups.group_work`) printed. With `twice`, a second
+        launch gives the same bits. With `timed`, both
         timed, and the bound from the work these inputs need: per walked
         (tile, group), each live slot's test against the tile, then, per
         slot, the planes at the image pixels of its span (the smallest
@@ -2052,13 +2085,25 @@ def main() -> int:
         used = torch.unique(groups)
         win_rows = torch.unique(got[1][hit]).numel()
         n_hit, n_cov, n_span = int(hit.sum()), int(covered.sum()), int(spans.sum())
+        work = raster_groups.group_work(rows, tl, walked, n_slots, tile, w, base)
+        info = raster_groups.kernel_info(tile, tl.shape[1])
         msg = (f"[{label}] {w}x{h}, tile {tile}, R {n_slots}, tile_base {base}, {tl.shape[0]} tiles, "
                f"{int(cnt.sum())} (tile, group) pairs listed, {int(walked.sum())} walked ({slot_pairs} live slot "
                f"walks, {slot_pairs * tile * tile} slot-pixels), worst list {int(cnt.max())}, "
                f"{int((cnt == 0).sum())} empty tiles, {n_span} span pixels, {n_cov} covered (slot, pixel) pairs, "
                f"{n_hit} hit pixels: depth bit mismatches {d_bits}, vid mismatches {v_diff}, gb bit mismatches "
-               f"{g_bits}")
+               f"{g_bits}; grid {work['ctas']} CTAs of 256 in clusters of {work['cluster']}, {info['regs']} "
+               f"registers, {info['smem_bytes']} B shared, {info['ctas_per_sm']} CTAs per SM, "
+               f"{info['clusters_resident']} clusters resident; slot-pixels evaluated {work['evaluated']} "
+               f"(every slot at every pixel: {work['first_port']})")
         check(d_bits == 0 and v_diff == 0 and g_bits == 0, f"{label}: group raster kernel != plain")
+        if twice:
+            again = raster_groups.run_groups(*args)
+            same = all(torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                                   b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+                       for a, b in zip(again, got))
+            msg += f"; the same bits twice {same}"
+            check(same, f"{label}: two launches differ")
         if not timed:
             print(msg, flush=True)
             return err, walked, cnt
@@ -2093,6 +2138,11 @@ def main() -> int:
         early_outs += int((walked < cnt).sum())
     print(f"[13] seeded inputs: {early_outs} tiles ended their walk early", flush=True)
     check(early_outs > 0, "no seeded tile ended its walk early")
+    # crowded: no near bound, so every tile walks its whole list, the fullest ones at their cap of 64
+    _, walked, cnt = group_vs_plain("13: group raster, crowded, no early-out",
+                                    seeded_group_inputs(17, 64, 128, False, None, dev), timed=False, twice=True)
+    check(bool((walked == cnt).all()) and int(walked.max()) == 64,
+          "crowded group case: a walk ended early, or no list is full")
 
     # one frame with the kernels and with the plain versions, from a shared state and carry
     prev = runner.carry

@@ -111,10 +111,14 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.hiz_build.restype = ci
         lib.raster_depth.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.raster_depth.restype = ci
-        lib.blend2d.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.blend2d.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.blend2d.restype = ci
         lib.raster_groups.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.raster_groups.restype = ci
+        lib.raster_groups_info.argtypes = [ci, ci, vp]
+        lib.raster_groups_info.restype = ci
+        lib.blend2d_info.argtypes = [ci, ci, ci, vp]
+        lib.blend2d_info.restype = ci
         # the Hopper probes (probes/csrc)
         for name, args in (
             ("probe_dynslice", [vp, vp, vp]),

@@ -33,6 +33,13 @@ Empty tiles are (0, 0, 0, 0) with vid −1. The outputs are the cropped
 same order (nvcc -fmad=false), so they agree exactly. Against the JAX
 interpret-mode kernel the colour agrees to float32 rounding: the TPU kernel's
 product sums its taps in the matrix unit's order.
+
+The kernel splits a tile's pixels over TILE × STRIP strips, a CTA each, walks
+the entries in windows of WIN, and skips a window for a warp (a WARP_W ×
+WARP_H block) whose image pixels it leaves unchanged (`blend_skip_model`
+holds that rule in plain PyTorch and counts what the kernel evaluates). The
+rule needs the texel planes finite, below 2^125 in magnitude, as
+`pack_blend_inputs` makes them from finite textures and tints.
 """
 
 from __future__ import annotations
@@ -48,6 +55,10 @@ MAX_VISIBLE = 1024  # sprites whose texture windows are resampled per frame
 N_FIELDS = 10  # p00x p00y e0x e0y e1x e1y idet cut_eff eid flip [+ depth]
 MAX_K = 512  # entries per tile the kernel stages in shared memory
 TILES_PER_CHUNK = 64  # plain version: live tiles evaluated together per entry
+STRIP = 4  # the kernel's CTA: TILE × STRIP pixels of a tile, a thread each
+WARP_W, WARP_H = 8, 4  # a warp's block of the strip
+WARPS = PIX // 32  # the kernel's warps a tile
+WIN = 2  # the kernel's window: entries whose taps a warp computes together
 
 LAUNCHES = 0
 
@@ -150,6 +161,137 @@ def blend_tiles_reference(tile_list: Tensor, cnt: Tensor, fields: Tensor, tex: T
     return untile(color, 4), untile(vid.to(torch.int32)[..., None], 1)[..., 0]
 
 
+def _warp_of_pixel(dev) -> Tensor:
+    """(PIX,) the kernel's warp (0 … WARPS - 1) of each tile pixel: WARP_W × WARP_H
+    blocks, row-major within each TILE × STRIP strip, strips top to bottom."""
+    lin = torch.arange(PIX, device=dev)
+    x, y = lin % TILE, lin // TILE
+    per_strip = (TILE // WARP_W) * (STRIP // WARP_H)
+    return (y // STRIP) * per_strip + ((y % STRIP) // WARP_H) * (TILE // WARP_W) + x // WARP_W
+
+
+def _local_uv(f: Tensor, px: Tensor, py: Tensor) -> tuple[Tensor, Tensor]:
+    p00x, p00y, e0x, e0y, e1x, e1y, idet = (f[:, i : i + 1] for i in range(7))
+    rx = px - p00x
+    ry = py - p00y
+    return (rx * e1y - ry * e1x) * idet, (ry * e0x - rx * e0y) * idet
+
+
+def blend_skip_model(tile_list: Tensor, cnt: Tensor, fields: Tensor, tex: Tensor, width: int, height: int,
+                     scene_depth: Tensor | None = None, settle: bool = True):
+    """The kernel's per-warp skip, in plain PyTorch: each warp (a WARP_W ×
+    WARP_H block of a tile) walks its tile's entries in windows of WIN and
+    takes a window where one of its image pixels needs one of the window's
+    entries (inside the quad, or u or v NaN) or, with `settle`, while one of
+    its image pixels holds a colour or alpha channel of -0 or NaN; it then
+    applies every entry of the window, in order, with
+    `blend_tiles_reference`'s arithmetic. Elsewhere its pixels keep their
+    values. Returns (color (H, W, 4), vid (H, W), evaluated): the (entry,
+    warp) pairs the warps evaluate. Without `settle` the skip is the bare
+    geometric one, which differs from the plain version where a -0 channel
+    meets a window that misses the pixel."""
+    dev = fields.device
+    tx, ty = _tile_grid(width, height)
+    n_tiles = tx * ty
+    with_depth = scene_depth is not None
+    lin = torch.arange(PIX, device=dev)
+    lx, ly = (lin % TILE).to(torch.float32), (lin // TILE).to(torch.float32)
+    warp_of = _warp_of_pixel(dev)
+    order = torch.argsort(warp_of, stable=True)  # pixels grouped by warp, 32 each
+    t_all = torch.arange(n_tiles, device=dev)
+    img = (((t_all % tx) * TILE)[:, None] + lin % TILE < width) \
+        & ((torch.div(t_all, tx, rounding_mode="floor") * TILE)[:, None] + lin // TILE < height)
+    color = torch.zeros((n_tiles, PIX, 4), dtype=torch.float32, device=dev)
+    vid = torch.full((n_tiles, PIX), -1.0, dtype=torch.float32, device=dev)
+    unsettled = torch.zeros((n_tiles, WARPS), dtype=torch.bool, device=dev)
+    if with_depth:
+        sd = torch.nn.functional.pad(scene_depth, (0, tx * TILE - width, 0, ty * TILE - height))
+        sd = sd.reshape(ty, TILE, tx, TILE).transpose(1, 2).reshape(n_tiles, PIX)
+    tex_flat = tex.reshape(-1, 4)
+    n_tex = tex.shape[0]
+    evaluated = 0
+    by_warp = lambda x: x[:, order].reshape(x.shape[0], WARPS, 32).any(2)
+    for k in range(int(cnt.max()) if n_tiles else 0):
+        tg = torch.nonzero(cnt > k)[:, 0]
+        f = fields[tg, k]
+        sid = torch.clamp(tile_list[tg, k].long(), 0, n_tex - 1)[:, None]
+        x0 = ((tg % tx) * TILE).to(torch.float32)[:, None]
+        y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None]
+        px = x0 + lx + 0.5
+        py = y0 + ly + 0.5
+        cut, eid, flip = f[:, 7:8], f[:, 8:9], f[:, 9:10]
+        lu, lv = _local_uv(f, px, py)
+        inside = (lu >= 0.0) & (lu <= 1.0) & (lv >= 0.0) & (lv <= 1.0)
+        u = lu + flip * (1.0 - 2.0 * lu)
+        v = 1.0 - lv
+        if k % WIN == 0:  # a window starts: the warps that take it
+            need = torch.zeros((tg.numel(), WARPS), dtype=torch.bool, device=dev)
+            for i in range(k, k + WIN):
+                fi = fields[tg, min(i, fields.shape[1] - 1)]
+                li, vi = _local_uv(fi, px, py)
+                ui = li + fi[:, 9:10] * (1.0 - 2.0 * li)
+                hit = (li >= 0.0) & (li <= 1.0) & (vi >= 0.0) & (vi <= 1.0) | torch.isnan(ui) | torch.isnan(1.0 - vi)
+                need |= by_warp(img[tg] & hit & (cnt[tg] > i)[:, None])
+            take_all = torch.zeros((n_tiles, WARPS), dtype=torch.bool, device=dev)
+            take_all[tg] = need | unsettled[tg] if settle else need
+        take = take_all[tg]
+        evaluated += int(take.sum())
+        fu = torch.clamp(u, 0.0, 1.0) * (TEX - 1)
+        fv = torch.clamp(v, 0.0, 1.0) * (TEX - 1)
+        u0 = torch.clamp(fu.to(torch.int64), 0, TEX - 2)
+        v0 = torch.clamp(fv.to(torch.int64), 0, TEX - 2)
+
+        def tent(c: Tensor, g: Tensor) -> Tensor:
+            return torch.clamp(1.0 - torch.abs(c - g.to(torch.float32)), min=0.0)
+
+        wu = (tent(fu, u0), tent(fu, u0 + 1))
+        wv = (tent(fv, v0), tent(fv, v0 + 1))
+        texel = None
+        for dv in (0, 1):
+            for du in (0, 1):
+                tap = tex_flat[sid * (TEX * TEX) + (v0 + dv) * TEX + (u0 + du)]
+                term = tap * (wv[dv] * wu[du])[..., None]
+                texel = term if texel is None else texel + term
+        a = texel[..., 3] * inside.to(torch.float32)
+        a = torch.where(a < cut, 0.0, a)
+        if with_depth:
+            a = torch.where(f[:, N_FIELDS : N_FIELDS + 1] > sd[tg], a, 0.0)
+        one_m = 1.0 - a
+        old = color[tg]
+        rgb = old[..., :3] * one_m[..., None] + texel[..., :3] * a[..., None]
+        alpha = old[..., 3] * one_m + a
+        take_px = take[:, warp_of]
+        new = torch.where(take_px[..., None], torch.cat([rgb, alpha[..., None]], dim=-1), old)
+        color[tg] = new
+        vid[tg] = torch.where(take_px & (a > 0.5), eid, vid[tg])
+        # after the last entry of a window it took, a warp notes whether it holds -0 or NaN
+        last = ((cnt[tg] == k + 1) | (k % WIN == WIN - 1))[:, None]
+        odd = ((new.view(torch.int32) == torch.iinfo(torch.int32).min) | torch.isnan(new)).any(2) & img[tg]
+        unsettled[tg] = torch.where(take & last, by_warp(odd), unsettled[tg])
+
+    def untile(x: Tensor, ch: int) -> Tensor:
+        x = x.reshape(ty, tx, TILE, TILE, ch).transpose(1, 2)
+        return x.reshape(ty * TILE, tx * TILE, ch)[:height, :width].contiguous()
+
+    return untile(color, 4), untile(vid.to(torch.int32)[..., None], 1)[..., 0], evaluated
+
+
+def kernel_info(with_depth: bool, k_cap: int) -> dict[str, int]:
+    """The kernel's launch resources on the current card for `k_cap` entries
+    a tile: registers a thread, shared memory a CTA, CTAs resident per SM,
+    local memory a thread (spills)."""
+    import ctypes
+
+    from .._build import load_kernel_library
+
+    lib = load_kernel_library()
+    out = (ctypes.c_int * 4)()
+    err = lib.blend2d_info(int(with_depth), k_cap, N_FIELDS + int(with_depth), out)
+    if err != 0:
+        raise RuntimeError(f"blend2d_info failed: {lib.kernel_error_string(err).decode()}")
+    return dict(zip(("regs", "smem_bytes", "ctas_per_sm", "local_bytes"), out))
+
+
 def _blend_cuda(tile_list: Tensor, cnt: Tensor, fields: Tensor, tex: Tensor, width: int, height: int,
                 scene_depth: Tensor | None) -> tuple[Tensor, Tensor]:
     """Launch `blend2d` on PyTorch's current stream. Raises on a build or
@@ -180,10 +322,11 @@ def _blend_cuda(tile_list: Tensor, cnt: Tensor, fields: Tensor, tex: Tensor, wid
         raise ValueError(f"scene_depth {tuple(scene_depth.shape)} for a {width}×{height} image")
     color = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     vid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    order = torch.empty(t_cnt, dtype=torch.int32, device=dev)  # the kernel's tile order, fullest first
     err = lib.blend2d(
         tile_list.data_ptr(), cnt.data_ptr(), fields.data_ptr(), tex.data_ptr(),
-        scene_depth.data_ptr() if with_depth else None, t_cnt, k_cap, n_fld, tex.shape[0], width, height,
-        color.data_ptr(), vid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        scene_depth.data_ptr() if with_depth else None, order.data_ptr(), t_cnt, k_cap, n_fld, tex.shape[0], width,
+        height, color.data_ptr(), vid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"blend2d launch failed: {lib.kernel_error_string(err).decode()}")

@@ -38,13 +38,20 @@ table, then CPU tensors take the plain PyTorch version
 `rasterize_groups_reference`, CUDA tensors the kernel (counted in
 `LAUNCHES`), anything else raises. Both compute the same operations in the
 same order (nvcc -fmad=false), so they agree exactly.
+
+The kernel spreads a 64² tile over a cluster of 4 CTAs (one per 32²
+sub-tile; a 32² tile is one CTA), each warp a WARP_W × WARP_H block, and
+skips a slot for a sub-tile or a warp's block where one of its planes proves
+it covers no pixel centre there (`group_warp_reject`, the test of
+`raster3d.plane_region_reject`); the walk and its early-out stay tile-wide
+and in list order. `group_work` counts what it evaluates.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .raster3d import ATTR_W, N_GB_ATTR, PLANE_OFF, _split_hilo
+from .raster3d import ATTR_W, N_GB_ATTR, PLANE_OFF, WARP_H, WARP_W, _split_hilo, plane_region_reject
 
 Tensor = torch.Tensor
 
@@ -52,6 +59,8 @@ TILES = (32, 64)      # tile edges the kernel takes
 MAX_SLOTS = 128       # the slot code 127 − slot needs slot < 128
 F32_MAX_BITS = 0x7F7FFFFF  # the near bound without ml_near: float32 max, as int32 bits
 CHUNK_ELEMS = 1 << 24  # plain version: (tile, slot, pixel) elements evaluated together
+SUB = 32              # the kernel's sub-tile side: one CTA each
+REJECT_PAIRS = 256    # `group_work`: (tile, group) pairs tested together
 
 LAUNCHES = 0
 
@@ -169,6 +178,77 @@ def _raster_groups_plain(rows: Tensor, tile_list: Tensor, near: Tensor, width: i
 def rasterize_groups_reference(rows, tile_list, near, width, height, n_slots, tile, tile_base):
     """The plain PyTorch version of the CUDA kernel: (depth, vid, gb)."""
     return _raster_groups_plain(rows, tile_list, near, width, height, n_slots, tile, tile_base)[:3]
+
+
+def group_region_reject(rows: Tensor, groups: Tensor, tiles: Tensor, n_slots: int, tile: int, width: int,
+                        tile_base: int, rw: int, rh: int) -> Tensor:
+    """The kernel's reject over the rw × rh regions of a tile, per (tile,
+    group) pair: (P, R, tile // rh, tile // rw) bool, True where a plane of
+    slot s of group `groups[i]`, staged for local tile `tiles[i]` as the
+    kernel stages it (tile-local constant at global tile `tiles[i] +
+    tile_base`, hi/lo split), proves by `raster3d.plane_region_reject` that
+    the slot covers no pixel centre of the region."""
+    dev = rows.device
+    tx = (width + tile - 1) // tile
+    tg = tiles.long() + tile_base
+    x0 = ((tg % tx) * tile).to(torch.float32)[:, None, None]
+    y0 = (torch.div(tg, tx, rounding_mode="floor") * tile).to(torch.float32)[:, None, None]
+    slot = torch.arange(n_slots, device=dev)
+    co = rows[groups.long()[:, None] * n_slots + slot, PLANE_OFF : PLANE_OFF + 15].reshape(-1, n_slots, 5, 3)
+    a, b, c = co[..., 0], co[..., 1], co[..., 2]  # (P, R, 5)
+    cp = (c + x0 * a) + y0 * b
+    (ah, al), (bh, bl), (ch, cl) = (_split_hilo(v) for v in (a, b, cp))
+    is_wd = torch.arange(5, device=dev) == 4
+    return plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw, rh)[..., : tile // rh, : tile // rw].any(2)
+
+
+def group_warp_reject(rows: Tensor, groups: Tensor, tiles: Tensor, n_slots: int, tile: int, width: int,
+                      tile_base: int) -> Tensor:
+    """The slots each warp of the kernel skips, per (tile, group) pair: (P, R,
+    tile // WARP_H, tile // WARP_W) bool over the tile's warp blocks: what its
+    sub-tile's reject skips and what the same test at its own block's corners
+    does."""
+    args = (rows, groups, tiles, n_slots, tile, width, tile_base)
+    sub = group_region_reject(*args, SUB, SUB)
+    sub = sub.repeat_interleave(SUB // WARP_H, 2).repeat_interleave(SUB // WARP_W, 3)
+    return sub | group_region_reject(*args, WARP_W, WARP_H)
+
+
+def group_work(rows: Tensor, tile_list: Tensor, walked: Tensor, n_slots: int, tile: int, width: int,
+               tile_base: int) -> dict[str, int]:
+    """What the kernel does over the groups each tile walked (`walked`, from
+    `_raster_groups_plain`): `pairs`, the walked (tile, group) pairs;
+    `first_port`, the slot-pixels the first port evaluated (every slot at all
+    tile² pixels of each pair); `evaluated`, the slot-pixels the kernel's warps
+    evaluate, each warp block's slots that `group_warp_reject` keeps at its
+    WARP_W·WARP_H pixels; and the grid, `ctas` and `cluster` (CTAs a tile)."""
+    k_walk = torch.arange(tile_list.shape[1], device=tile_list.device)[None, :] < walked[:, None]
+    t_idx, k_idx = torch.nonzero(k_walk, as_tuple=True)
+    groups = torch.clamp(tile_list[t_idx, k_idx], min=0)
+    kept = 0
+    for c0 in range(0, groups.numel(), REJECT_PAIRS):
+        rej = group_warp_reject(rows, groups[c0 : c0 + REJECT_PAIRS], t_idx[c0 : c0 + REJECT_PAIRS], n_slots, tile,
+                                width, tile_base)
+        kept += int((~rej).sum())
+    cluster = (tile // SUB) ** 2
+    return {"pairs": groups.numel(), "first_port": groups.numel() * n_slots * tile * tile,
+            "evaluated": kept * WARP_W * WARP_H, "ctas": tile_list.shape[0] * cluster, "cluster": cluster}
+
+
+def kernel_info(tile: int, k_cap: int) -> dict[str, int]:
+    """The kernel's launch resources on the current card: registers a thread,
+    shared memory a CTA, CTAs resident per SM, clusters resident on the card
+    (0 for tile 32, which launches no cluster), CTAs a cluster."""
+    import ctypes
+
+    from .._build import load_kernel_library
+
+    lib = load_kernel_library()
+    out = (ctypes.c_int * 5)()
+    err = lib.raster_groups_info(tile, k_cap, out)
+    if err != 0:
+        raise RuntimeError(f"raster_groups_info failed: {lib.kernel_error_string(err).decode()}")
+    return dict(zip(("regs", "smem_bytes", "ctas_per_sm", "clusters_resident", "cluster"), out))
 
 
 def _raster_groups_cuda(rows, tile_list, near, width, height, n_slots, tile, tile_base):

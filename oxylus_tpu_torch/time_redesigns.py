@@ -1,16 +1,18 @@
 """Times the depth raster (`ops/csrc/raster_depth.cu`), the compact
 rigid-body kernel (`physics/csrc/megakernel_compact.cu`), the tile G-buffer
-raster (`ops/csrc/raster_tiles.cu`), HiZ (`ops/csrc/hiz.cu`) and the banded
+raster (`ops/csrc/raster_tiles.cu`), HiZ (`ops/csrc/hiz.cu`), the banded
 and dense rigid-body kernels (`physics/csrc/megakernel_banded.cu`,
-`megakernel_dense.cu`) at the main path's shapes on one card, for this
-checkout or another one:
+`megakernel_dense.cu`), the group G-buffer raster (`ops/csrc/raster_groups.cu`)
+and the sprite blend (`ops/csrc/blend2d.cu`) at the main path's shapes on
+one card, for this checkout or another one:
 
     python -m oxylus_tpu_torch.time_redesigns [SECTION ...]
     python oxylus_tpu_torch/time_redesigns.py --tree DIR [SECTION ...]   # DIR's oxylus_tpu_torch
 
 SECTION names what to time, all of it when none is named: `kernels` (the
 main path's and the physics cell's kernels and the bench rates below),
-`dot_rhs_t` and `roll_lanes` (the probes 9a and 9c's roll).
+`dot_rhs_t`, `roll_lanes` and `dynslice` (the probes 9a, 9c's roll and 9b),
+`groups` (the group raster) and `blend` (the sprite blend).
 
 The second form (only as a file: `-m` has imported this checkout's package
 already) imports the package from DIR (for example a `git archive` of
@@ -68,7 +70,18 @@ Prints the card's name and power limit, then one JSON object:
   `sum_order_bound`. `roll_lanes_us`: 9c's roll of the script's (128, 384)
   block by 5, and `torch_roll_us`, `torch.roll`'s, with the ratio; the roll
   is first held exactly equal to `torch.roll` on the script's and the seeded
-  cases.
+  cases. `dynslice_us`: 9b on the script's inputs, held exactly against its
+  plain version first; `index_select_us`: `torch.index_select` of x's
+  columns at the source lanes, computed beforehand: the probe's gather alone,
+  without its bf16 rounding, window mask and row-0 echo, which no one call
+  adds.
+- `groups_ms`: the group raster's early and late pass of one config-5 frame
+  on the group route (`RenderSpec(raster_path="group", compact_raster=True)`)
+  that runs both; `blend2d_ms`: the config-2 2D runner's blend in its 62nd
+  frame; `blend_layer_ms`: config 3's depth-tested particle layer in its 62nd
+  frame. Each `[events, graph]` as `tiles_ms`, after the call is held
+  exactly (depth bits, vid, G-buffer bits; colour bits, vid) against its
+  plain version (`rasterize_groups_reference`, `blend_tiles_reference`).
 """
 
 from __future__ import annotations
@@ -84,7 +97,8 @@ from pathlib import Path
 REPS = 20
 PROBE_REPS = 200  # calls in the probes' CUDA graph, as `chip_smoke.py` phase 14
 DT = 1.0 / 60.0
-SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes")
+SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend")
+BLEND_FRAMES = 62  # the 2D and config-3 runners' frames before the blend is captured (chip_smoke's 2 + 60)
 FIELDS = ("pos", "linvel", "angvel", "quat")
 
 
@@ -166,8 +180,12 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     out = {"tree": args.tree or ".", "package": raster_depth.__file__, "card": card}
-    if "dot_rhs_t" in want or "roll_lanes" in want:
+    if want & {"dot_rhs_t", "roll_lanes", "dynslice"}:
         probes_section(torch, dev, out, want)
+    if "groups" in want:
+        groups_section(torch, dev, out)
+    if "blend" in want:
+        blend_section(torch, dev, out)
     if "kernels" not in want:
         print(json.dumps(out), flush=True)
         return 0
@@ -323,10 +341,73 @@ def main(argv: list[str]) -> int:
     return 0
 
 
+def exact(torch, label, got, want) -> None:
+    """Raise unless the kernel's outputs equal the plain version's bit for bit."""
+    same = all(torch.equal(g.view(torch.int16 if g.element_size() == 2 else torch.int32),
+                           w.view(torch.int16 if w.element_size() == 2 else torch.int32)) for g, w in zip(got, want))
+    if not same:
+        raise RuntimeError(f"{label}: kernel != plain")
+
+
+def timed_pair(torch, fn) -> list[float]:
+    return [cuda_ms(torch, fn), graph_ms(torch, fn)]
+
+
+def groups_section(torch, dev, out) -> None:
+    """The group raster's two passes on the config-5 group route (see the module's docstring)."""
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import raster_groups
+    from oxylus_tpu_torch.runtime import SceneRunner
+
+    scene, runner_kw = build_frame5_scene(1920, 1080, device=dev)
+    runner_kw["render_spec"] = dataclasses.replace(runner_kw["render_spec"], raster_path="group", compact_raster=True)
+    runner = SceneRunner(scene, **runner_kw)
+    run, calls = raster_groups.run_groups, []
+    raster_groups.run_groups = lambda *a: (calls.append(a), run(*a))[1]
+    try:
+        for _ in range(120):  # the late pass runs once the pile hides and uncovers objects
+            calls.clear()
+            runner.step()
+            if len(calls) == 2:
+                break
+    finally:
+        raster_groups.run_groups = run
+    if len(calls) != 2:
+        raise RuntimeError("no config-5 group-route frame with both raster passes")
+    out["groups_ms"] = []
+    for a in calls:
+        exact(torch, "group raster", run(*a), raster_groups.rasterize_groups_reference(*a))
+        out["groups_ms"].append(timed_pair(torch, lambda: run(*a)))
+
+
+def blend_section(torch, dev, out) -> None:
+    """The blend in the config-2 and config-3 frames (see the module's docstring)."""
+    from oxylus_tpu_torch.frame2d import build_frame2d_scene
+    from oxylus_tpu_torch.frame3d import build_frame3d_scene
+    from oxylus_tpu_torch.ops import blend2d
+    from oxylus_tpu_torch.runtime import SceneRunner
+
+    run = blend2d.run_blend
+    for key, build in (("blend2d", build_frame2d_scene), ("blend_layer", build_frame3d_scene)):
+        scene, runner_kw = build(1920, 1080, device=dev)
+        runner, calls = SceneRunner(scene, **runner_kw), []
+        blend2d.run_blend = lambda *a: (calls.append(a), run(*a))[1]
+        try:
+            for _ in range(BLEND_FRAMES):
+                calls.clear()
+                runner.step()
+        finally:
+            blend2d.run_blend = run
+        a = calls[-1]
+        exact(torch, key, run(*a), blend2d.blend_tiles_reference(*a))
+        out[f"{key}_ms"] = timed_pair(torch, lambda: run(*a))
+        out[f"{key}_pairs"] = int(a[1].sum())
+
+
 def probes_section(torch, dev, out, want) -> None:
-    """The probes 9a and 9c's roll against their PyTorch calls (see the module's docstring)."""
+    """The probes 9a, 9c's roll and 9b beside PyTorch calls (see the module's docstring)."""
     from oxylus_tpu_torch import probes
-    from oxylus_tpu_torch.probes import dot_rhs_t, mosaic_ops
+    from oxylus_tpu_torch.probes import dot_rhs_t, dynslice, mosaic_ops
 
     us = lambda fn: probes.time_us(fn, dev, PROBE_REPS)[0]
     if "dot_rhs_t" in want:
@@ -346,6 +427,13 @@ def probes_section(torch, dev, out, want) -> None:
         out["torch_roll_us"] = us(lambda: torch.roll(x, 5, 1))
         out["roll_lanes_us"] = us(lambda: mosaic_ops.roll_lanes(x, 5))
         out["roll_lanes_to_torch_roll"] = out["roll_lanes_us"] / out["torch_roll_us"]
+    if "dynslice" in want:
+        x, d = dynslice.script_inputs(dev)
+        if not torch.equal(dynslice.dynslice(x, d), dynslice.dynslice_reference(x, d)):
+            raise RuntimeError("dynslice != its plain version")
+        src = torch.clamp(torch.arange(dynslice.B, device=dev) + d[0].long(), 0, dynslice.B - 1)
+        out["index_select_us"] = us(lambda: torch.index_select(x, 1, src))
+        out["dynslice_us"] = us(lambda: dynslice.dynslice(x, d))
 
 
 if __name__ == "__main__":
