@@ -163,10 +163,13 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    oxylus_tpu_torch.probes` runs: the four TPU probe scripts' cases, each
    checked and timed) with every probe kernel launched; then each kernel held
    against its plain version on the scripts' and seeded inputs (exact; the
-   bf16 and float32 products within their sum-order bounds; `dot_rhs_t` also
-   at n = 72 and twice for the same bits), timed as a CUDA graph of 200
-   calls beside its plain version, its bound and, where one PyTorch call
-   computes the same function, that call's time and the kernel's ratio to it;
+   bf16 and float32 products within their sum-order bounds at 1, 7 and 500
+   repetitions, two ragged shapes past their tiles at 1 and 7, each twice for
+   the same bits, no rate above its data-sheet peak; `dot_rhs_t` also at n =
+   72 and twice for the same bits), timed as a CUDA graph of 200 calls beside
+   its plain version, its bound and, where one PyTorch call computes the same
+   function, that call's time and the kernel's ratio to it (the products: one
+   `torch.matmul` of the operands concatenated 500 times along k);
 15. config 4, `build_sponza_scene(1920, 1080)` (the atrium GLB generated from
    seed 42 and imported and baked on the host; PIL's version, the seconds of
    each host step, the prepass capacities and the masked meshlets printed):
@@ -603,6 +606,7 @@ def seeded_blend_inputs(seed, w, h, k, n_sprites, with_depth, dev, tint_lo=0.3):
 
 
 PROBE_REPS = 200  # timed launches per probe kernel (after one warm-up)
+PRODUCT_RAGGED = ((96, 80, 48, torch.float32), (48, 64, 80, torch.bfloat16))  # past the product kernels' tiles
 
 
 def _tri_edge(p, q, inside):
@@ -786,6 +790,10 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
     print(f"[14] probes.run_all: {len(lines)} probes in {wall:.2f} s ({card}); launches {counts}; by kernel "
           f"{kernel_counts}", flush=True)
     check(len(lines) == 26, f"run_all gave {len(lines)} probe lines, not 26")
+    for r in lines:
+        if r["name"].startswith("matmul"):
+            check(r["tflops"] <= r["peak_tflops"], f"{r['name']}: {r['tflops']:.1f} TFLOP/s above the data sheet's "
+                                                  f"{r['peak_tflops']}: a repetition hoisted out of the kernel's loop?")
     for name, n in counts.items():
         check(n > 0, f"the probe run never launched a kernel of {name}")
     for kernel in mosaic_ops.OPS:
@@ -947,17 +955,29 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
     errs["vector_chain"] = max(errs["vector_chain"], exact(
         "vector chain x200 (128, 384)", proll.vector_chain(xb, proll.VPU_BIG_ITERS),
         proll.vector_chain_reference(xb, proll.VPU_BIG_ITERS)))
-    for m_, k_, n_, dtype in proll.MATMULS + ((96, 80, 48, torch.float32), (48, 64, 80, torch.bfloat16)):
+    # the products: all ones exact at the script's shapes; seeded a, b within the sum-order bound at 1, 7 and 500
+    # repetitions (the ragged shapes, past the kernels' 128-row tiles, at 1 and 7), each twice with the same bits
+    for m_, k_, n_, dtype in proll.MATMULS + PRODUCT_RAGGED:
         kname = "matmul_f32" if dtype == torch.float32 else "matmul_bf16"
-        if (m_, k_, n_, dtype) in proll.MATMULS:
+        script = (m_, k_, n_, dtype) in proll.MATMULS
+        if script:
             a, b = torch.ones(m_, k_, dtype=dtype, device=dev), torch.ones(k_, n_, dtype=dtype, device=dev)
             got = proll.matmul_acc(a, b, proll.REPS_M)
             check(bool((got == proll.REPS_M * k_).all()), f"{kname} {m_}x{k_}x{n_}: all-ones product != 500·k")
             errs[kname] = max(errs[kname], exact(f"{kname} {m_}x{k_}x{n_} all ones x{proll.REPS_M}", got,
                                                  proll.matmul_reference(a, b, proll.REPS_M)))
         a, b = proll.seeded_matrices(m_ + k_ + n_, m_, k_, n_, dtype, dev)
-        errs[kname] = max(errs[kname], within(f"{kname} {m_}x{k_}x{n_} seeded x1", proll.matmul_acc(a, b, 1),
-                                              proll.matmul_reference(a, b, 1), proll.product_bound(a, b, 1)))
+        for reps in (1, 7, proll.REPS_M) if script else (1, 7):
+            label = f"{kname} {m_}x{k_}x{n_} seeded x{reps}"
+            got = proll.matmul_acc(a, b, reps)
+            errs[kname] = max(errs[kname], within(label, got, proll.matmul_reference(a, b, reps),
+                                                  proll.product_bound(a, b, reps)))
+            same = torch.equal(got.view(torch.int32), proll.matmul_acc(a, b, reps).view(torch.int32))
+            plan = proll.product_plan(m_, k_, n_, reps, dtype)
+            print(f"[14] {label}: two runs give the same bits: {same}; plan {plan['design']}, tile 128 x "
+                  f"{plan['tile_n']}, k-slice {plan['k_slice']}, {plan['rep_groups']} repetition groups, "
+                  f"{plan['grid']} CTAs, {plan['parts']} partials, {plan['smem_bytes']} B of shared memory", flush=True)
+            check(same, f"{label}: two runs differ")
     n_el = xs.numel()
     for via, key in (("shuffle", "roll_chain"), ("smem", "roll_chain_smem")):
         t = timed(f"{key} static x{proll.N_INNER} (8, 128)", lambda: proll.roll_chain(xs, proll.N_INNER, via=via),
@@ -984,13 +1004,28 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
         flops = 2 * m_ * k_ * n_ * proll.REPS_M
         elt = 2 if dtype == torch.bfloat16 else 4
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        t = timed(f"{kname} {m_}x{k_}x{n_} x{proll.REPS_M}", lambda: proll.matmul_acc(a, b, proll.REPS_M),
-                  lambda: proll.matmul_reference(a, b, proll.REPS_M), (m_ * k_ + k_ * n_) * elt + m_ * n_ * 4, flops,
-                  peak, plain_reps=2)
+        # the library call: one torch.matmul of the operands concatenated 500 times along k (made beforehand), the
+        # same 2·m·k·n·500 operations; TF32 off, so float32 stays float32
+        a_cat, b_cat = a.repeat(1, proll.REPS_M), b.repeat(proll.REPS_M, 1)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            t = timed(f"{kname} {m_}x{k_}x{n_} x{proll.REPS_M}", lambda: proll.matmul_acc(a, b, proll.REPS_M),
+                      lambda: proll.matmul_reference(a, b, proll.REPS_M), (m_ * k_ + k_ * n_) * elt + m_ * n_ * 4,
+                      flops, peak, library_fn=lambda: torch.matmul(a_cat, b_cat), plain_reps=2)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        cat_bytes = a_cat.numel() * elt + b_cat.numel() * elt
+        del a_cat, b_cat
+        rate = flops / t[0] / 1e9
         one = cuda_ms(lambda: torch.matmul(a, b), PROBE_REPS)
-        print(f"[14] {kname}: {flops / t[0] / 1e9:.3f} TFLOP/s of {peak / 1e12:g}; torch.matmul of one product "
-              f"{one:.5f} ms = {2 * m_ * k_ * n_ / one / 1e9:.3f} TFLOP/s, the yardstick, not used by the port ({card})",
-              flush=True)
+        print(f"[14] {kname}: {rate:.3f} TFLOP/s of {peak / 1e12:g} ({rate / (peak / 1e12):.1%}); the library call "
+              f"{flops / (t[3] * 1e9):.3f} TFLOP/s on {cat_bytes / 1e9:.2f} GB of concatenated operands"
+              f"{' (bytes-bound: %.3f ms to read them at 3.35 TB/s)' % (cat_bytes / PEAK_BYTES * 1e3) if elt == 2 else ''}"
+              f"; torch.matmul of one product {one:.5f} ms = {2 * m_ * k_ * n_ / one / 1e9:.3f} TFLOP/s, the "
+              f"yardstick, not used by the port ({card})", flush=True)
+        check(rate <= peak / 1e12, f"{kname}: {rate:.1f} TFLOP/s above the data sheet's {peak / 1e12:g}: a "
+                                   f"repetition hoisted out of the kernel's loop?")
         row(f"probe_{kname}", "roll.cu", f"scripts/probe_roll.py:{line}", roll_counts.get(kname, 0), errs[kname], t)
     t = timed("argmax_extract 16 rounds (8, 128)", lambda: proll.argmax_extract(xs),
               lambda: proll.argmax_extract_reference(xs, 16), 2 * n_el * 4, 16 * n_el)

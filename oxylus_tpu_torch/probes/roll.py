@@ -22,7 +22,10 @@ CPU tensor its plain version. Rotates, argmax extraction and the dynamic trip
 are exact; the vector chain repeats the kernel's operations one by one (the
 kernels are built with `-fmad=false`), so it is exact too. The products sum in
 another order on each side: exact on integer sums below 2²⁴, else within
-`product_bound`.
+`product_bound`. Their kernels keep both operands in shared memory for all
+repetitions on a grid that `product_plan` lays out (m-tiles × n-tiles ×
+k-slices × repetition groups, `product_blocks` says which CTA does what) and
+add the per-CTA partials in a fixed order.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ DYN_SHIFT, DYN_BASE, DYN_STEP, DYN_TRIP = 5, 3, 4, 37
 MATMULS = ((128, 384, 16, torch.float32), (128, 384, 128, torch.float32), (128, 384, 16, torch.bfloat16),
            (1024, 1024, 128, torch.bfloat16), (1024, 1024, 128, torch.float32))
 PEAK_TFLOPS = {torch.float32: 67, torch.bfloat16: 989}  # H100 SXM data sheet: CUDA-core f32, dense bf16 tensor cores
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448  # shared memory a CTA may use (227 KB)
+PROD_TILE_M = 128  # a product CTA's output rows
+F32_KSLICE, F32_UNROLL = 64, 8  # the FFMA product's largest k-slice; k steps per loop trip
 
 LAUNCHES = 0
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()  # launches by kernel
@@ -212,23 +219,97 @@ def vector_chain(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     return dispatch(kernel, lambda: vector_chain_reference(x, n_iter), x)
 
 
+def _product_shapes(m: int, k: int, n: int, reps: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless `matmul_acc` takes these shapes: float32 m % 32,
+    n % 16, k % 4; bf16 m, k, n % 16; reps ≥ 1."""
+    rows = 32 if dtype == torch.float32 else 16
+    if m % rows or n % 16 or k % (4 if dtype == torch.float32 else 16) or reps < 1:
+        raise ValueError(f"matmul_acc: shapes ({m}, {k}), ({k}, {n}), reps {reps}")
+
+
+def product_plan(m: int, k: int, n: int, reps: int, dtype: torch.dtype) -> dict:
+    """The launch of Σ over reps of (m, k)·(k, n): a grid of m-tiles × n-tiles
+    × k-slices × repetition groups, about one wave of the card's SMS. Each CTA
+    keeps its 128 × k_slice block of a and k_slice × tile_n block of b in
+    shared memory for its group's repetitions and writes one float32 partial;
+    `parts` = k_slices × rep_groups partials are added in a fixed order.
+
+    float32 (`design` "ffma": 8 × 8 outputs a thread): tile_n 128 and one CTA
+    an SM, or for n < 64 tile_n 16 with `warps_k` 4 warps splitting the
+    k-slice and two CTAs an SM; k_slice up to 64. bf16 ("wgmma"): tile_n 128
+    with a k-slice of 256, or 16 with 128, one CTA of two warpgroups an SM.
+    Raises ValueError on shapes the kernels do not take, empty ones included."""
+    _product_shapes(m, k, n, reps, dtype)
+    if min(m, k, n) <= 0 or dtype not in PEAK_TFLOPS:
+        raise ValueError(f"no product kernel for ({m}, {k}), ({k}, {n}) {dtype}")
+    if dtype == torch.float32:
+        design = "ffma"
+        wide = n >= 64
+        tile_n, warps_k, threads, ctas_per_sm = (128, 1, 256, 1) if wide else (16, 4, 128, 2)
+        step = F32_UNROLL * warps_k
+        k_slice = min(F32_KSLICE, -(-k // step) * step)
+        smem = 4 * max(k_slice * (PROD_TILE_M + tile_n), (warps_k - 1) * PROD_TILE_M * tile_n)
+    else:
+        design = "wgmma"
+        tile_n = 128 if n >= 64 else 16
+        k_slice = 256 if tile_n == 128 else 128
+        warps_k, threads, ctas_per_sm = 1, 256, 1
+        smem = 2 * k_slice * tile_n
+    tiles_m, tiles_n, k_slices = -(-m // PROD_TILE_M), -(-n // tile_n), -(-k // k_slice)
+    base = tiles_m * tiles_n * k_slices
+    rep_groups = max(1, min(reps, SMS * ctas_per_sm // base))
+    return {"m": m, "k": k, "n": n, "reps": reps, "dtype": dtype, "design": design, "tile_m": PROD_TILE_M,
+            "tile_n": tile_n, "k_slice": k_slice, "rep_groups": rep_groups, "tiles_m": tiles_m, "tiles_n": tiles_n,
+            "k_slices": k_slices, "parts": k_slices * rep_groups, "grid": base * rep_groups, "threads": threads,
+            "warps_k": warps_k, "smem_bytes": smem}
+
+
+def product_blocks(plan: dict) -> list[dict]:
+    """What each CTA of `plan` computes, in block order, as the kernels decode
+    it (the m-tile fastest, then the n-tile, the k-slice, the repetition
+    group): its partial's index (group × k_slices + k-slice), its output rows
+    and columns, its k-slice's k runs (one a k-warp, in the order their sums
+    are added) and its repetitions, each a [start, end) range clipped to the
+    shapes (the kernels zero what lies past them)."""
+    m, k, n, reps = plan["m"], plan["k"], plan["n"], plan["reps"]
+    ks, groups, wk = plan["k_slice"], plan["rep_groups"], plan["warps_k"]
+    out = []
+    for blk in range(plan["grid"]):
+        tm, rest = blk % plan["tiles_m"], blk // plan["tiles_m"]
+        tn, rest = rest % plan["tiles_n"], rest // plan["tiles_n"]
+        s, g = rest % plan["k_slices"], rest // plan["k_slices"]
+        r0 = g * (reps // groups) + min(g, reps % groups)
+        k0 = s * ks
+        out.append({"part": g * plan["k_slices"] + s,
+                    "rows": (tm * PROD_TILE_M, min(m, (tm + 1) * PROD_TILE_M)),
+                    "cols": (tn * plan["tile_n"], min(n, (tn + 1) * plan["tile_n"])),
+                    "k_runs": [(min(k, k0 + w * ks // wk), min(k, k0 + (w + 1) * ks // wk)) for w in range(wk)],
+                    "reps": (r0, r0 + reps // groups + (g < reps % groups))})
+    return out
+
+
 def matmul_acc(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     """Σ over reps of a·b in float32: a (m, k), b (k, n), both float32 (FFMA on
-    the CUDA cores) or both bf16 (mma.sync on the tensor cores)."""
+    the CUDA cores) or both bf16 (`wgmma` on the tensor cores), launched as
+    `product_plan` says."""
     if a.dtype not in PEAK_TFLOPS or b.dtype != a.dtype:
         raise ValueError(f"matmul_acc takes two float32 or two bf16 matrices, got {a.dtype}, {b.dtype}")
     require(a, a.dtype, name="a")
     require(b, a.dtype, name="b")
     m, k = a.shape
     n = b.shape[1]
-    rows = 32 if a.dtype == torch.float32 else 16
-    if b.shape[0] != k or m % rows or n % 16 or k % (4 if a.dtype == torch.float32 else 16) or reps < 1:
+    if b.shape[0] != k:
         raise ValueError(f"matmul_acc: shapes {tuple(a.shape)}, {tuple(b.shape)}, reps {reps}")
+    _product_shapes(m, k, n, reps, a.dtype)
     name = "matmul_f32" if a.dtype == torch.float32 else "matmul_bf16"
 
     def kernel():
+        plan = product_plan(m, k, n, reps, a.dtype)
         out = torch.empty(m, n, dtype=torch.float32, device=a.device)
-        launch(f"probe_{name}", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps)
+        parts = torch.empty(plan["parts"], m, n, dtype=torch.float32, device=a.device) if plan["parts"] > 1 else None
+        launch(f"probe_{name}", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+               None if parts is None else parts.data_ptr(), m, k, n, reps,
+               *(plan[key] for key in ("tile_m", "tile_n", "k_slice", "rep_groups", "grid", "smem_bytes")))
         _count(name)
         return out
 

@@ -12,7 +12,8 @@ one card, for this checkout or another one:
 SECTION names what to time, all of it when none is named: `kernels` (the
 main path's and the physics cell's kernels and the bench rates below),
 `dot_rhs_t`, `roll_lanes` and `dynslice` (the probes 9a, 9c's roll and 9b),
-`groups` (the group raster) and `blend` (the sprite blend).
+`groups` (the group raster), `blend` (the sprite blend) and `products` (9d's
+FFMA and bf16 products).
 
 The second form (only as a file: `-m` has imported this checkout's package
 already) imports the package from DIR (for example a `git archive` of
@@ -82,6 +83,18 @@ Prints the card's name and power limit, then one JSON object:
   frame. Each `[events, graph]` as `tiles_ms`, after the call is held
   exactly (depth bits, vid, G-buffer bits; colour bits, vid) against its
   plain version (`rasterize_groups_reference`, `blend_tiles_reference`).
+- `products`: 9d's two products at the script's five shapes, Σ over 500
+  repetitions of seeded a·b, each first held within `product_bound` of
+  `matmul_reference` (`of_bound`: the largest error as a share of it): `ms`,
+  the kernel's device time per call in a CUDA graph of PROBE_REPS calls;
+  `library_ms`, one
+  `torch.matmul(a.repeat(1, 500), b.repeat(500, 1))` (the same 2·m·k·n·500
+  operations in one call; operands made beforehand, TF32 off; bf16 in, bf16
+  out) timed the same way; `tflops`, `to_library`, `bound_ms` (the
+  operations at 67 or 989 TFLOP/s) and the checkout's launch plan. `sass`:
+  the FFMA, HGMMA, HMMA, LDS and LDSM instructions of each product kernel in
+  the built library (`cuobjdump -sass`), to show that the repetition loop
+  was not hoisted.
 """
 
 from __future__ import annotations
@@ -97,7 +110,7 @@ from pathlib import Path
 REPS = 20
 PROBE_REPS = 200  # calls in the probes' CUDA graph, as `chip_smoke.py` phase 14
 DT = 1.0 / 60.0
-SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend")
+SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend", "products")
 BLEND_FRAMES = 62  # the 2D and config-3 runners' frames before the blend is captured (chip_smoke's 2 + 60)
 FIELDS = ("pos", "linvel", "angvel", "quat")
 
@@ -186,6 +199,8 @@ def main(argv: list[str]) -> int:
         groups_section(torch, dev, out)
     if "blend" in want:
         blend_section(torch, dev, out)
+    if "products" in want:
+        products_section(torch, dev, out)
     if "kernels" not in want:
         print(json.dumps(out), flush=True)
         return 0
@@ -434,6 +449,75 @@ def probes_section(torch, dev, out, want) -> None:
         src = torch.clamp(torch.arange(dynslice.B, device=dev) + d[0].long(), 0, dynslice.B - 1)
         out["index_select_us"] = us(lambda: torch.index_select(x, 1, src))
         out["dynslice_us"] = us(lambda: dynslice.dynslice(x, d))
+
+
+
+SASS_OPS = ("FFMA", "HGMMA", "HMMA", "LDS", "LDSM")
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel: {opcode: count}} of the product kernels in the library, from
+    `cuobjdump -sass` (names demangled by cu++filt where the toolkit has it)."""
+    import re
+    import shutil
+
+    tools = [shutil.which(t) or f"/usr/local/cuda/bin/{t}" for t in ("cuobjdump", "cu++filt")]
+    text = subprocess.run([tools[0], "-sass", str(lib_path)], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s+Function : (\S+)", line)
+        if head:
+            name = head.group(1) if "matmul" in head.group(1) or "product_reduce" in head.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if name and op and op.group(1) in SASS_OPS:
+            counts[name][op.group(1)] += 1
+    if Path(tools[1]).is_file():
+        names = subprocess.run([tools[1]], input="\n".join(counts), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def products_section(torch, dev, out) -> None:
+    """9d's products beside one torch.matmul of the concatenated operands (see the module's docstring)."""
+    from oxylus_tpu_torch._build import build_kernel_library
+    from oxylus_tpu_torch.probes import roll
+
+    reps = roll.REPS_M
+    rows = []
+    for m, k, n, dtype in roll.MATMULS:
+        a, b = roll.seeded_matrices(m + k + n, m, k, n, dtype, dev)
+        want, tol = roll.matmul_reference(a, b, reps).double(), roll.product_bound(a, b, reps)
+        flops = 2 * m * k * n * reps
+        row = {"shape": [m, k, n], "dtype": str(dtype).split(".")[-1],
+               "bound_ms": flops / roll.PEAK_TFLOPS[dtype] / 1e9}
+        row["of_bound"] = ((roll.matmul_acc(a, b, reps).double() - want).abs() / tol).max().item()
+        if not row["of_bound"] <= 1.0:
+            raise RuntimeError(f"matmul {m}x{k}x{n} {row['dtype']}: {row['of_bound']} of product_bound")
+        row["ms"] = graph_ms(torch, lambda: roll.matmul_acc(a, b, reps), PROBE_REPS)
+        if hasattr(roll, "product_plan"):
+            plan = roll.product_plan(m, k, n, reps, dtype)
+            row["plan"] = {key: plan[key] for key in ("design", "tile_n", "k_slice", "rep_groups", "parts", "grid",
+                                                      "threads", "smem_bytes")}
+        a_cat, b_cat = a.repeat(1, reps), b.repeat(reps, 1)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            row["library_ms"] = graph_ms(torch, lambda: torch.matmul(a_cat, b_cat), PROBE_REPS)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del a_cat, b_cat
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["to_library"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    out["products"] = rows
+    out["sass"] = sass_counts(build_kernel_library())
 
 
 if __name__ == "__main__":
