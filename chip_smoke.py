@@ -17,8 +17,10 @@ on config 2 (phase 10), the 3D frame with particles on config 3 (phase
 11), the physics bench cells (phase 12), the config-5 frame through the
 group raster route (phase 13), the Hopper probes (phase 14), the
 Sponza-class atrium of config 4 with its textured and alpha-masked materials
-(phase 15) and the port's bench suite (phase 16), with bodies and the atrium
-made from a fixed seed. Every
+(phase 15) and on the group raster route (phase 18), the port's bench suite
+(phase 16), and the decode path (`RenderSpec(use_pallas=False)`) on the
+golden scene (phase 17a) and the config-5 runner (phase 17b), with bodies and
+the atrium made from a fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -185,7 +187,28 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    bounds; seeded masked-pass inputs (K2 128) exactly equal to the plain
    version; frames/s over 3 windows of 12 frames;
 16. `python -m oxylus_tpu_torch.bench` in a subprocess: every cell's line
-   (value > 0 for all six) and the weakest cell with `suite` as its last line.
+   (value > 0 for all six) and the weakest cell with `suite` as its last line;
+17a. the golden scene (`golden_scene`, `tests/test_golden_images.py`'s) on the
+   decode path at 256×144 with each of the five goldens' settings: PSNR
+   against the stored golden ≥ 40 dB (the goldens' bound) and ≥ 80 dB (the
+   decode path's own: sound frames read ≥ 86.8, the tile route ≤ 42.7);
+   PSNR ≥ 80 dB against the port's frame of the same scene on the CPU; the
+   frame with the kernels equal to the frame with HiZ and the depth raster
+   routed to their plain versions; HiZ and the depth raster launched, the
+   tile and group rasters never;
+17b. the config-5 runner, `build_frame5_scene(1920, 1080)` with
+   `RenderSpec(use_pallas=False)`: 2 warm-up frames, then 10 frames timed on
+   the host clock with every launch count set to 0 just before and the peak
+   memory allocated; the compact kernel, HiZ and the depth raster launched,
+   the tile and group rasters never; the image finite in [0, 1],
+   `expand_overflow` 0, no box centre below y = -1 m;
+18. (run after phase 15, on its atrium) config 4 on the group raster route
+   (`raster_path="group"`, textured and alpha-masked): 3 frames with every
+   launch count set to 0 just before; the group raster's opaque and masked
+   passes in every frame, the tile raster never; phase 15's overflow gates;
+   the image finite in [0, 1] up to 1e-6; one frame with the kernels and
+   with the plain versions from a shared state and carry (identical), and
+   its PSNR to the tile route's frame printed.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -297,6 +320,17 @@ ENTRY_BOXES, ENTRY_CAPACITY, ENTRY_MAX_PAIRS = 255, 512, 2048
 WIDE_BOXES, WIDE_CAPACITY = 2000, 2048  # phase 12a: more bodies than the physics kernels' grid has warps
 SPONZA_FRAMES, SPONZA_WINDOW = 8, 12  # phase 15: frames with the launches gated; frames per timed window
 BENCH_TIMEOUT = 600  # s: phase 16's bench suite
+GROUP_ATRIUM_FRAMES = 3  # phase 18: the atrium's frames on the group raster route
+DECODE_FRAMES = 10  # phase 17b: timed frames of the config-5 runner on the decode path
+GOLDEN_W, GOLDEN_H, GOLDEN_MIN_DB = 256, 144, 40.0  # phase 17a: the goldens' size and bound (tests/test_golden_images.py)
+# phase 17a: the decode path's own bound to each golden. Sound frames read 86.81-93.80 dB on an H100 and
+# 87.43-90.12 dB on the CPU; the port's tile route reads 41.27-42.71 dB on the same goldens, so a fault
+# that costs the decode path tens of dB still clears the goldens' 40 dB but not this.
+GOLDEN_DECODE_MIN_DB = 80.0
+GOLDEN_SETTINGS = {  # tests/test_golden_images.py's five goldens
+    "flat": {}, "sky": dict(atmosphere=True), "shadows": dict(atmosphere=True, enable_shadows=True),
+    "full": dict(atmosphere=True, enable_shadows=True, ssr=True), "sky65": dict(atmosphere=True, fov_deg=65.0),
+}
 EVENT_FRAMES = 4
 
 
@@ -1037,6 +1071,50 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
     row("probe_dynamic_trip", "roll.cu", "scripts/probe_roll.py:139", roll_counts.get("dynamic_trip", 0),
         errs["dynamic_trip"], t)
     return rows
+
+
+def golden_scene(dev, fov_deg: float = 60.0):
+    """The scene of the stored goldens (`tests/test_golden_images.py::_world`)
+    on the port: a unit cube over a 20 m ground plane under a sun, the
+    camera at (0, 1, 4) looking down -z. Returns (state, gscene, camera,
+    materials)."""
+    import numpy as np
+
+    from oxylus_tpu_torch.assets.bake import bake_mesh
+    from oxylus_tpu_torch.assets.material import empty_gpu_materials
+    from oxylus_tpu_torch.frame5 import cube_mesh
+    from oxylus_tpu_torch.render.camera import camera_matrices
+    from oxylus_tpu_torch.render.scene3d import upload_meshes
+    from oxylus_tpu_torch.scene.scene import Scene
+    from oxylus_tpu_torch.scene.state import SceneSpec
+
+    s = Scene("golden3d", spec=SceneSpec(max_entities=32), device=dev)
+    ground = s.create_entity("ground")
+    ground.add("TransformComponent", position=(0.0, -1.0, 0.0))
+    cube = s.create_entity("cube")
+    cube.add("TransformComponent", position=(0.0, 0.0, 0.0))
+    sun = s.create_entity("sun")
+    sun.add("TransformComponent", position=(0.0, 10.0, 0.0), rotation=(-0.3826834, 0.0, 0.0, 0.9238795))
+    sun.add("LightComponent", type="Directional", color=(1.0, 0.98, 0.9), intensity=4.0)
+    plane = (np.array([[-10, 0, -10], [10, 0, -10], [10, 0, 10], [-10, 0, 10]], np.float32),
+             np.tile(np.array([[0, 1, 0]], np.float32), (4, 1)),
+             np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32), np.array([0, 2, 1, 0, 3, 2], np.uint32))
+    gscene = upload_meshes([bake_mesh(*cube_mesh()), bake_mesh(*plane)], [(0, cube.index, 0), (1, ground.index, 0)],
+                           max_instances=4, device=dev)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    cam = camera_matrices(position=f([0.0, 1.0, 4.0]), yaw=f(-math.pi / 2), pitch=f(0.0), tilt=f(0.0),
+                          fov_deg=f(fov_deg), near=f(0.1), far=f(100.0), zoom=f(1.0),
+                          projection_kind=torch.tensor(0, dtype=torch.int32, device=dev),
+                          aspect=f(GOLDEN_W / GOLDEN_H))
+    return s.to_device_state(), gscene, cam, empty_gpu_materials(8, device=dev)
+
+
+def psnr_u8(img, golden) -> float:
+    """`tests/test_golden_images.py::psnr` of a frame quantised as that test
+    does against a stored uint8 golden."""
+    q = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8).double()
+    mse = (q - torch.as_tensor(golden, device=img.device).double()).pow(2).mean().item()
+    return 99.0 if mse == 0 else 20.0 * math.log10(255.0) - 10.0 * math.log10(mse)
 
 
 def main() -> int:
@@ -2326,7 +2404,72 @@ def main() -> int:
         runner.run(SPONZA_WINDOW)
         rates.append(SPONZA_WINDOW / (time.perf_counter() - t0))
     print(f"[15] sponza frames/s over 3 windows of {SPONZA_WINDOW}: {sorted(rates)} ({card})", flush=True)
-    del runner, scene, runner_kw, ctx_k, ctx_p, prev
+
+    # ---- 18. config 4 on the group raster route, textured and masked ---------------
+    tile_runner = runner
+    del ctx_k, ctx_p
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # phase 15's atrium (static: its runner left the scene as built)
+    runner_kw = dict(runner_kw, render_spec=dataclasses.replace(runner_kw["render_spec"], raster_path="group"))
+    runner = SceneRunner(scene, **runner_kw)
+    gspec = runner.renderer3d.spec
+    print(f"[18] atrium on the group raster route built in {time.perf_counter() - t0:.2f} s: raster_group "
+          f"{gspec.raster_group}, tile {gspec.tile}, meshlets_per_tile {gspec.meshlets_per_tile}, compact_raster "
+          f"{gspec.compact_raster}; texturing {runner._texture_features}, masked pass {runner._has_alpha_mask}",
+          flush=True)
+    check(runner._textured and runner._has_alpha_mask and gspec.raster_path == "group",
+          "the atrium's group-route runner leaves texturing or the masked pass out")
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    g18, stats = [], []
+    t0 = time.perf_counter()
+    for _ in range(GROUP_ATRIUM_FRAMES):
+        g0 = raster_groups.LAUNCHES
+        image = runner.step()
+        stats.append(runner.frame_stats)
+        g18.append(raster_groups.LAUNCHES - g0)
+    torch.cuda.synchronize()
+    wall18 = time.perf_counter() - t0
+    atrium_group_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    gates = [{k: int(v) for k, v in st.items()} for st in stats]
+    print(f"[18] {GROUP_ATRIUM_FRAMES} frames in {wall18:.3f} s ({card}): kernel launches {atrium_group_launches}; "
+          f"group raster launches per frame {g18}; overflow per frame "
+          f"{[(g['expand_overflow'], g['bin_overflow']) for g in gates]}; image range [{image.min().item()}, "
+          f"{image.max().item()}], mean {image.mean().item():.5f}", flush=True)
+    check(all(n >= 2 for n in g18), f"a group-route atrium frame missed its opaque or masked pass: {g18}")
+    check(atrium_group_launches[raster3d.__name__] == 0, "the atrium's group route launched the tile raster")
+    for g in gates[MAIN_WARMUP - 1:]:
+        check(g["expand_overflow"] == 0 and g["bin_overflow"] == 0, f"group-route atrium frame dropped work: {g}")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(image).all())
+          and image.min().item() >= 0.0 and image.max().item() <= 1.0 + FXAA_RANGE_ROUNDING,
+          "group-route atrium image not finite or outside [0, 1]")
+    # one frame with the kernels and with the plain versions from a shared
+    # state and carry (no page cache: every shadow level renders), and the
+    # same frame on the tile route
+    prev = {k: v for k, v in runner.carry.items() if k != "shadow_cache"}
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+
+    def render18(renderer):
+        return renderer.render(
+            runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+            prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows, textured=runner._textured,
+            texture_features=runner._texture_features, alpha_masked=runner._has_alpha_mask,
+            static_lights=runner._static_lights,
+        )["final"]
+
+    g0 = raster_groups.LAUNCHES
+    img_k = render18(runner.renderer3d)
+    rendered = raster_groups.LAUNCHES - g0
+    with plain_on_card(raster_groups, hiz_ops, raster_depth):
+        img_p = render18(runner.renderer3d)
+    img_t = render18(tile_runner.renderer3d)
+    print(f"[18] one atrium frame on the group route with the kernels ({rendered} group raster launches) and with "
+          f"the plain versions from a shared state and carry: identical {bool(torch.equal(img_k, img_p))}; PSNR to "
+          f"the tile route's frame {psnr(img_k, img_t):.2f} dB", flush=True)
+    check(rendered >= 2, "the group-route comparison frame missed a raster pass")
+    check(torch.equal(img_k, img_p), "group-route atrium: kernel and plain frames differ")
+    del runner, tile_runner, scene, runner_kw, prev, img_k, img_p, img_t
     torch.cuda.empty_cache()
 
     # ---- 16. the port's bench suite, as `python -m oxylus_tpu_torch.bench` runs it --------
@@ -2346,10 +2489,97 @@ def main() -> int:
     check(sorted(suite) == sorted(bench.CELLS) and all(c["value"] > 0 for c in suite.values()) and len(cells) == 6,
           f"the bench suite's cells: {suite}")
 
+    # ---- 17a. the decode path on the golden scene -----------------------------------
+    import numpy as np
+
+    from oxylus_tpu_torch.core.config import RendererConfig
+    from oxylus_tpu_torch.render.sky import AtmosphereParams
+
+    golden_dir = __import__("pathlib").Path(__file__).resolve().parent / "tests" / "data"
+    golden_spec = renderer3d.RenderSpec(width=GOLDEN_W, height=GOLDEN_H, max_visible_meshlets=64, use_pallas=False)
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    golden_db = {}
+    cpu = torch.device("cpu")
+
+    def render_golden(kw: dict, on) -> torch.Tensor:
+        state, gscene, cam, mats = golden_scene(on, kw.get("fov_deg", 60.0))
+        cfg = RendererConfig(ssr_enable=True) if kw.get("ssr") else RendererConfig()
+        return renderer3d.RendererInstance(golden_spec).render(
+            state, gscene, cam, mats, torch.zeros((8, 8, 4), dtype=torch.uint8, device=on), cfg,
+            atmosphere=AtmosphereParams() if kw.get("atmosphere") else None,
+            enable_shadows=bool(kw.get("enable_shadows")))["final"]
+
+    for name, kw in GOLDEN_SETTINGS.items():
+        img_k = render_golden(kw, dev)
+        with plain_on_card(hiz_ops, raster_depth):
+            img_p = render_golden(kw, dev)
+        img_c = render_golden(kw, cpu)  # the port's decode path on the CPU, launching nothing
+        golden_db[name] = psnr_u8(img_k, np.load(golden_dir / f"golden_{name}.npy"))
+        cpu_db = psnr_u8(img_k, torch.clamp(img_c * 255.0 + 0.5, 0, 255).to(torch.uint8).numpy())
+        print(f"[17a] golden {name}: decode path on the card vs the stored golden {golden_db[name]:.2f} dB, vs the "
+              f"port's CPU frame {cpu_db:.2f} dB; kernels vs plain versions identical "
+              f"{bool(torch.equal(img_k, img_p))}", flush=True)
+        check(cpu_db >= GOLDEN_DECODE_MIN_DB, f"golden {name}: {cpu_db:.2f} dB from the port's CPU frame")
+        check(golden_db[name] >= GOLDEN_MIN_DB, f"golden {name}: PSNR {golden_db[name]:.2f} dB < {GOLDEN_MIN_DB}")
+        check(golden_db[name] >= GOLDEN_DECODE_MIN_DB,
+              f"golden {name}: PSNR {golden_db[name]:.2f} dB < {GOLDEN_DECODE_MIN_DB}, the decode path's own bound")
+        check(torch.equal(img_k, img_p), f"golden {name}: kernel and plain frames differ")
+    golden_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    print(f"[17a] kernel launches over the five goldens (each rendered twice, the second time with the plain "
+          f"versions): {golden_launches}", flush=True)
+    check(golden_launches[hiz_ops.__name__] > 0 and golden_launches[raster_depth.__name__] > 0,
+          "the golden frames never launched HiZ or the depth raster")
+    check(golden_launches[raster3d.__name__] == 0 and golden_launches[raster_groups.__name__] == 0,
+          "the decode path launched a G-buffer raster kernel")
+
+    # ---- 17b. the config-5 runner on the decode path at 1080p -------------------------
+    t0 = time.perf_counter()
+    scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    runner_kw["render_spec"] = dataclasses.replace(runner_kw["render_spec"], use_pallas=False)
+    runner = SceneRunner(scene, **runner_kw)
+    print(f"[17b] config-5 runner on the decode path built in {time.perf_counter() - t0:.2f} s; "
+          f"{runner.renderer3d.spec}", flush=True)
+    runner.run(MAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(DECODE_FRAMES):
+        image = runner.step()
+    torch.cuda.synchronize()
+    wall17 = time.perf_counter() - t0
+    peak17 = torch.cuda.max_memory_allocated(dev)
+    decode_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    ps = runner.ps
+    dyn = ps.active & (ps.body_type == BODY_DYNAMIC)
+    min_y = ps.pos[dyn, 1].min().item()
+    carry = runner.carry
+    print(f"[17b] config-5 runner, decode path: {DECODE_FRAMES} frames at {WIDTH}x{HEIGHT} in {wall17:.3f} s = "
+          f"{DECODE_FRAMES / wall17:.3f} frames/s ({card}); peak memory allocated {peak17 / 2**30:.3f} GiB; kernel "
+          f"launches {decode_launches}; expand_overflow {int(carry['expand_overflow'])}, bin_overflow "
+          f"{int(carry['bin_overflow'])}; image mean {image.mean().item():.5f}; lowest box centre y = {min_y:.4f} m",
+          flush=True)
+    for mod in (mc, hiz_ops, raster_depth):
+        check(decode_launches[mod.__name__] > 0, f"the decode-path frames never launched the {mod.__name__} kernel")
+    check(decode_launches[raster3d.__name__] == 0 and decode_launches[raster_groups.__name__] == 0,
+          "the decode path launched a G-buffer raster kernel")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(image).all())
+          and image.min().item() >= 0.0 and image.max().item() <= 1.0, "decode path: image not finite or outside [0, 1]")
+    check(int(carry["expand_overflow"]) == 0, "decode path: the meshlet expansion dropped work")
+    check(bool(torch.isfinite(ps.pos).all()) and min_y > FLOOR_MID_Y, "decode path: a box fell through the floor")
+    del runner, scene, runner_kw
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
+        # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
+        # path's timed frames) and 18 (the atrium's group-route frames)
+        paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
+                 "atrium_group_18": atrium_group_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None}
+                "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}
 
     early = raster_rows[0]
     print(json.dumps({"kernels": [

@@ -1,10 +1,13 @@
 """The six cells of the repo's `bench.py`, on the port.
 
     python -m oxylus_tpu_torch.bench [physics|physics10k|frame2d|frame3d|sponza|frame5 ...]
+    OX_BENCH=physics python -m oxylus_tpu_torch.bench
 
 A named cell prints its JSON line on stdout (the metric, its value, the unit
 and `vs_baseline`); its integrity gates raise when they fail, as `bench.py`'s
-asserts do. With no cell named the whole suite runs in `bench.py`'s order,
+asserts do. With no cell named on the command line, `OX_BENCH` names the one
+cell to run, as in `bench.py:707-718` (any other value, or none, runs the
+suite). With no cell named at all the whole suite runs in `bench.py`'s order,
 each cell's line goes to stderr as it lands (a cell that raises reports value
 0 and its error), and the one stdout line is the weakest cell with `suite`,
 every cell's value and `vs_baseline`; the exit code is nonzero when a cell
@@ -18,7 +21,8 @@ The physics cells (rigid-body steps per second against the repo's 10 M target):
   capacity 10112, 8 calls per window.
 
 The environment chooses the physics route as in `bench.py`: `OX_BENCH_KERNEL`
-(`compact`, the default; `banded`; `dense`), `OX_BENCH_MEGA=0` (60 calls of
+(`compact`, the default; `banded`; `dense`), `OX_BENCH_BANDED=0` (the legacy
+switch to the dense kernel, over `OX_BENCH_KERNEL`), `OX_BENCH_MEGA=0` (60 calls of
 `physics_substep` per call instead of one kernel call), `OX_BENCH_GE` (the
 compact and banded kernels' geometry stride, default 2), `OX_BENCH_SLEEP=1`
 (sleeping on) and `OX_BENCH_RSLOTS` (the compact kernel's neighbour slots).
@@ -43,6 +47,17 @@ the JAX bench's scenes:
 The frame2d and frame5 runners count their binned pairs
 (`SceneRunner(binning_stats=True)`: a sum per pass on the card, read after
 the clock stops); the other cells' frames do not.
+
+The environment sets the frame cells' raster knobs as `bench.py` reads them
+(`raster_env`): `frame3d` takes `OX_COMPACT`, `OX_TILE`, `OX_K2`, `OX_BG` and
+`OX_MPT` (`bench.py:336-340`), `frame5` `OX_COMPACT`, `OX_K2` and `OX_BG`
+(`:414-416`), `sponza` `OX_CAP_MULT`, `OX_RASTER_GROUP`, `OX_TILE`, `OX_MPT`,
+`OX_K2` and `OX_BG` (`:594-610`), each with `bench.py`'s default. A value the
+port cannot run is refused with the variable's name: `OX_TILE` other than 64
+(the tile route takes 64-px tiles), `OX_K2` other than a multiple of 64 up to
+256, a count below 1, a value that is not a number. `OX_BENCH_REBAKE=1` asks
+`bench.py` to rebuild its cached atrium; the port caches nothing and builds it
+every run.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from .flagship import build_flagship
 from .frame2d import build_frame2d_scene
 from .frame3d import build_frame3d_scene
 from .frame5 import build_frame5_scene
+from .ops import raster3d
 from .physics import megakernel, megakernel_banded, megakernel_compact
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
@@ -190,7 +206,56 @@ def _cell(rate: float, metric: str) -> dict:
 
 
 def _route() -> dict:
-    return {"mega": os.environ.get("OX_BENCH_MEGA", "1") == "1", "kernel": os.environ.get("OX_BENCH_KERNEL", "compact")}
+    """The physics route from the environment, as `bench.py:72-74` reads it."""
+    kernel = os.environ.get("OX_BENCH_KERNEL", "compact")
+    if os.environ.get("OX_BENCH_BANDED") == "0":  # the legacy switch
+        kernel = "dense"
+    return {"mega": os.environ.get("OX_BENCH_MEGA", "1") == "1", "kernel": kernel}
+
+
+def _env_number(name: str, default: str, kind=int):
+    raw = os.environ.get(name, default)
+    try:
+        value = kind(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None
+    if value <= 0:
+        raise ValueError(f"{name}={raw!r}: must be above 0")
+    return value
+
+
+def raster_env(cell: str) -> dict:
+    """The raster knobs `bench.py` reads from the environment for a frame
+    cell, with its defaults: `RenderSpec` fields, and for `sponza` also
+    `cap_mult`. Raises, naming the variable, for a value the port cannot run."""
+    if cell == "frame3d":  # bench.py:336-340
+        names = {"compact_raster": "OX_COMPACT", "tile": "OX_TILE", "tris_per_tile": "OX_K2",
+                 "bin_groups_per_tile": "OX_BG", "meshlets_per_tile": "OX_MPT"}
+        defaults = {"OX_TILE": "64", "OX_K2": "192", "OX_BG": "32", "OX_MPT": "64"}
+    elif cell == "frame5":  # bench.py:414-416
+        names = {"compact_raster": "OX_COMPACT", "tris_per_tile": "OX_K2", "bin_groups_per_tile": "OX_BG"}
+        defaults = {"OX_K2": "192", "OX_BG": "32"}
+    elif cell == "sponza":  # bench.py:594-610
+        names = {"cap_mult": "OX_CAP_MULT", "raster_group": "OX_RASTER_GROUP", "tile": "OX_TILE",
+                 "meshlets_per_tile": "OX_MPT", "tris_per_tile": "OX_K2", "bin_groups_per_tile": "OX_BG"}
+        defaults = {"OX_CAP_MULT": "4", "OX_RASTER_GROUP": "64", "OX_TILE": "64", "OX_MPT": "64", "OX_K2": "256",
+                    "OX_BG": "32"}
+    else:
+        raise ValueError(f"{cell!r} has no raster knobs")
+    out = {}
+    for field, name in names.items():
+        if name == "OX_COMPACT":
+            out[field] = os.environ.get(name, "0") == "1"
+        else:
+            out[field] = _env_number(name, defaults[name], float if name == "OX_CAP_MULT" else int)
+    if "tile" in out and out["tile"] != raster3d.TILE:
+        raise NotImplementedError(f"OX_TILE={out['tile']}: the tile raster route takes {raster3d.TILE}-px tiles; "
+                                  "other tiles are not ported yet")
+    k2 = out["tris_per_tile"]
+    if k2 % raster3d.TILE_ROUND or k2 > raster3d.MAX_K2:
+        raise ValueError(f"OX_K2={k2}: the tile raster takes a multiple of {raster3d.TILE_ROUND} up to "
+                         f"{raster3d.MAX_K2} entries a tile")
+    return out
 
 
 def run_physics(device=None) -> dict:
@@ -266,7 +331,8 @@ def bench_frame_3d(width=1920, height=1080, frames=20, warmup=2, device=None, n_
     """Frame-steps/s on config 3 (`bench.bench_frame_3d`)."""
     from .runtime import SceneRunner
 
-    scene, runner_kw = build_frame3d_scene(width, height, n_objects, device=resolve_device(device))
+    scene, runner_kw = build_frame3d_scene(width, height, n_objects, device=resolve_device(device),
+                                           raster=raster_env("frame3d"))
     rate, _warm, _timed = _frame_windows(SceneRunner(scene, **runner_kw), frames, warmup)
     return {"rate": rate}
 
@@ -276,7 +342,8 @@ def bench_frame_5(width=1920, height=1080, frames=12, warmup=2, device=None, n_o
     every frame's binning drop share."""
     from .runtime import SceneRunner
 
-    scene, runner_kw = build_frame5_scene(width, height, n_objects, n_boxes, device=resolve_device(device))
+    scene, runner_kw = build_frame5_scene(width, height, n_objects, n_boxes, device=resolve_device(device),
+                                          raster=raster_env("frame5"))
     rate, warm, timed = _frame_windows(SceneRunner(scene, binning_stats=True, **runner_kw), frames, warmup)
     st = _read_stats(warm + timed, ("bin_overflow", "bin_pairs", "expand_overflow"))
     worst = max(st, key=_drop_share)
@@ -294,7 +361,9 @@ def bench_frame_sponza(width=1920, height=1080, frames=12, warmup=2, device=None
     from .runtime import SceneRunner
     from .sponza import build_sponza_scene
 
-    scene, runner_kw, info = build_sponza_scene(width, height, device=resolve_device(device))
+    raster = raster_env("sponza")
+    scene, runner_kw, info = build_sponza_scene(width, height, device=resolve_device(device),
+                                                cap_mult=raster.pop("cap_mult"), raster=raster)
     print(f"sponza: {info['summary']}; host seconds {info['seconds']}; prepass {info['prepass']}",
           file=sys.stderr, flush=True)
     rate, warm, timed = _frame_windows(SceneRunner(scene, **runner_kw), frames, warmup)
@@ -360,6 +429,8 @@ def main(argv: list[str]) -> int:
         if name not in CELLS:
             print(f"unknown cell {name!r}; cells: {', '.join(CELLS)}", file=sys.stderr)
             return 2
+    if not argv and os.environ.get("OX_BENCH", "all") in CELLS:
+        argv = [os.environ["OX_BENCH"]]
     if not argv:
         weakest, ok = run_suite()
         print(json.dumps(weakest), flush=True)

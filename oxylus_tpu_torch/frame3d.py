@@ -53,13 +53,17 @@ def populate_frame3d(scene, n_objects: int = 200) -> None:
         e.add("MeshComponent", mesh_index=i % 2)
 
 
-def build_frame3d_scene(width: int = 1920, height: int = 1080, n_objects: int = 200, device=None):
+RASTER = dict(compact_raster=False, tile=64, tris_per_tile=192, bin_groups_per_tile=32, meshlets_per_tile=64)
+
+
+def build_frame3d_scene(width: int = 1920, height: int = 1080, n_objects: int = 200, device=None,
+                        raster: dict | None = None):
     """Build the scene on `device` (the card unless "cpu") and return
-    (scene, SceneRunner keyword arguments)."""
+    (scene, SceneRunner keyword arguments). `raster` overrides fields of
+    `RASTER`, the bench's raster settings."""
     scene = Scene("meshlets", spec=SceneSpec(max_entities=1024), device=device)
     populate_frame3d(scene, n_objects)
-    spec = RenderSpec(width=width, height=height, compact_raster=False, tile=64, tris_per_tile=192,
-                      bin_groups_per_tile=32, meshlets_per_tile=64)
+    spec = RenderSpec(width=width, height=height, **{**RASTER, **(raster or {})})
     runner_kw = dict(
         width=width, height=height, render_mode="3d",
         meshes=[bake_mesh(*cube_mesh()), bake_mesh(*sphere_mesh(16, 32))],

@@ -124,16 +124,20 @@ def populate_frame5(scene, n_objects: int = 150, n_boxes: int = 255) -> None:
                 cnt += 1
 
 
+RASTER = dict(compact_raster=False, tris_per_tile=192, bin_groups_per_tile=32)
+
+
 def build_frame5_scene(width: int = 1920, height: int = 1080, n_objects: int = 150, n_boxes: int = 255,
-                       max_bodies: int = 512, device=None):
+                       max_bodies: int = 512, device=None, raster: dict | None = None):
     """Build the scene on `device` (the card unless "cpu") and return
-    (scene, SceneRunner keyword arguments)."""
+    (scene, SceneRunner keyword arguments). `raster` overrides fields of
+    `RASTER`, the bench's raster settings."""
     scene = Scene("full_frame", spec=SceneSpec(max_entities=1024, max_bodies=max_bodies), device=device)
     populate_frame5(scene, n_objects, n_boxes)
     scene.renderer_config = RendererConfig(ssr_enable=True)
     # the bench's raster settings: passthrough groups, 192 triangle entries and
     # 32 group candidates per tile
-    spec = RenderSpec(width=width, height=height, compact_raster=False, tris_per_tile=192, bin_groups_per_tile=32)
+    spec = RenderSpec(width=width, height=height, **{**RASTER, **(raster or {})})
     runner_kw = dict(
         width=width, height=height, render_mode="3d",
         meshes=[bake_mesh(*cube_mesh()), bake_mesh(*sphere_mesh(16, 32))],

@@ -9,8 +9,9 @@ per pixel, -1 where nothing covers).
 This is the JAX package's device branch (`use_pallas=True`, `:108-181`): one
 29-column packed record gathered once in sorted order, binning over the first
 `MAX_VISIBLE` sorted sprites, their 16×16 texture tiles, and the blend. The
-port runs it on both devices; the JAX package's XLA branch (full-resolution
-`sample_atlas_bilinear` per pixel, its CPU path) is not ported.
+port runs it on every device. The JAX package's XLA branch (full-resolution
+`sample_atlas_bilinear` per pixel, which it takes on the CPU) is not ported:
+a difference by design (`ROADMAP.md` C).
 """
 
 from __future__ import annotations

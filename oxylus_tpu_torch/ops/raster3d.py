@@ -37,6 +37,15 @@ plane proves it covers no pixel centre there (`tile_region_reject`,
 `tile_work` counts what that rule evaluates. The main path does not call
 them: they are plain mirrors of the kernel's rules for the tests
 (`tests/test_torch_raster_tiles_reject.py`) and `chip_smoke.py`.
+
+`rasterize_reference` is the decode path's raster (`RenderSpec(use_pallas=
+False)`), a port of the JAX package's XLA function of that name, which that
+path runs on every device: depth and vid = (vm << 8) | slot over per-tile
+meshlet lists, the planes in float32 at global pixel centres. It is not the
+plain version of a kernel. It and the depth raster's plain version
+(`raster_depth.rasterize_depth_reference`) walk the live (tile, entry) pairs
+with one walk (`walk_live_pairs`, `fold_live_pairs`), each with its own plane
+evaluation and chunk size.
 """
 
 from __future__ import annotations
@@ -47,11 +56,14 @@ Tensor = torch.Tensor
 
 TILE = 64
 TILE_ROUND = 64   # entries resolved per round
+MAX_K2 = 256      # entries per tile at most: vid's entry field is 8 bits
 N_GB_ATTR = 16    # G-buffer lanes: [nrm xyz, uv, tangent xyz, alb rgb, metallic, roughness, emissive rgb]
 ATTR_W = 64       # per-slot attribute row: [a(16) | b(16) | c(16) | consts(16)]
 COMB_W = ATTR_W + 15 + 4  # comb row: attrB 64 | coeffs 15 | tz | material | instance | packed id
 PLANE_OFF = ATTR_W       # the 15 plane coefficients, plane-major (e0 e1 e2 zn wd) × (a b c)
 TILES_PER_CHUNK = 16     # plain version: tiles evaluated together
+N_DEPTH_PLANES = 5       # rasterize_reference's planes: e0 e1 e2 | zn wd
+REF_CHUNK_BYTES = 1 << 29  # rasterize_reference: the largest temporary of one chunk of tiles
 SUB = 32                 # the kernel's sub-tile side: one CTA of the tile's cluster each
 CLUSTER = (TILE // SUB) ** 2
 WARP_W, WARP_H = 16, 8   # a warp's block of the sub-tile
@@ -114,8 +126,9 @@ def pack_tile_blocks(entries: Tensor, comb: Tensor) -> dict:
               equal to the JAX package's
     """
     t_n, k2 = entries.shape
-    if k2 % TILE_ROUND != 0 or k2 > 256:
-        raise ValueError(f"k2 = {k2}: must be a multiple of 64 and at most 256 (vid's entry field is 8 bits)")
+    if k2 % TILE_ROUND != 0 or k2 > MAX_K2:
+        raise ValueError(f"k2 = {k2}: must be a multiple of {TILE_ROUND} and at most {MAX_K2} (vid's entry field "
+                         "is 8 bits)")
     rounds = k2 // TILE_ROUND
     have = entries >= 0
     d = comb[torch.clamp(entries, min=0).reshape(-1).long(), PLANE_OFF + 15 :]  # (T·K2, 4)
@@ -334,6 +347,109 @@ def _raster_tiles_cuda(entries, comb, counts, near_r, width, height):
     if err != 0:
         raise RuntimeError(f"raster_tiles launch failed: {lib.kernel_error_string(err).decode()}")
     return depth, vid, gb
+
+
+def _untile(a: Tensor, width: int, height: int) -> Tensor:
+    tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    a = a.reshape(ty, tx, TILE, TILE).transpose(1, 2)
+    return a.reshape(ty * TILE, tx * TILE)[:height, :width].contiguous()
+
+
+def walk_live_pairs(coeff_mat: Tensor, tile_list: Tensor, live: Tensor, planes, chunk: int, k0: int = 0,
+                    k1: int | None = None):
+    """The (tile, entry) pairs that `live` (T, K) marks, with k0 ≤ entry < k1,
+    entry by entry, at most `chunk` tiles together, listed in one host read:
+    yields (tiles (C,), entry k, meshlets (C,) = max(tile_list[t, k], 0),
+    cover (C, n, PIX), z (C, n, PIX), -1 where a slot does not cover).
+    `planes(blk, tiles, n)` gives the planes e0 e1 e2 zn wd (C, 5, n, PIX) of
+    the first n slots of the (C, 3, 5R) blocks at the tiles' pixels; a slot
+    covers where e0, e1, e2 ≥ 0, wd > 0 and 0 ≤ zn ≤ wd, and its depth is
+    zn / wd. A chunk is evaluated only up to its meshlets' last real slot: an
+    invalid slot's e0 is the constant -1e30 (a = b = 0), it covers nothing,
+    so the slots past it change neither the largest depth nor its first
+    slot."""
+    dev = coeff_mat.device
+    r = coeff_mat.shape[-1] // N_DEPTH_PLANES
+    e0 = coeff_mat[:, :, :r]
+    real = ~((e0[:, 0] == 0) & (e0[:, 1] == 0) & (e0[:, 2] < 0))
+    n_real = torch.where(real, torch.arange(r, device=dev) + 1, 0).max(1).values  # one past the last real slot
+    ks = torch.arange(live.shape[1], device=dev)
+    live = live & (ks >= k0) & (ks < (live.shape[1] if k1 is None else k1))
+    k_idx, t_idx = torch.nonzero(live.t(), as_tuple=True)
+    vm_all = torch.clamp(tile_list[t_idx, k_idx], min=0).long()
+    host_k, host_n = torch.stack([k_idx, n_real[vm_all]]).tolist()
+    start = 0
+    while start < len(host_k):
+        stop = start + 1
+        while stop < len(host_k) and stop - start < chunk and host_k[stop] == host_k[start]:
+            stop += 1
+        n = max(host_n[start:stop])
+        if n:
+            tg, vm = t_idx[start:stop], vm_all[start:stop]
+            e0, e1, e2, zn, wd = planes(coeff_mat[vm], tg, n).unbind(1)
+            cover = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (wd > 0) & (zn >= 0) & (zn <= wd)
+            yield tg, host_k[start], vm, cover, torch.where(cover, zn / torch.where(wd > 0, wd, 1.0), -1.0)
+        start = stop
+
+
+def fold_live_pairs(pairs, n_tiles: int, width: int, height: int, device) -> tuple[Tensor, Tensor]:
+    """Fold `walk_live_pairs`' pairs into (depth (H, W) f32 reverse-Z, 0 far …
+    1 near; vid (H, W) i32 = (vm << 8) | slot, -1 empty): an entry's winner
+    is the first slot of the largest depth, and it replaces a pixel only
+    where strictly nearer."""
+    depth = torch.zeros((n_tiles, TILE * TILE), dtype=torch.float32, device=device)
+    vid = torch.full((n_tiles, TILE * TILE), -1, dtype=torch.int32, device=device)
+    for tg, _, vm, _, zm in pairs:
+        best = zm.max(1).values  # (C, PIX)
+        slot = torch.arange(zm.shape[1], dtype=torch.int32, device=device)[None, :, None]
+        arg = torch.where(zm >= best[:, None], slot, 1 << 20).min(1).values
+        better = best > depth[tg]
+        depth[tg] = torch.where(better, best, depth[tg])
+        vid[tg] = torch.where(better, (vm.to(torch.int32) << 8)[:, None] | arg, vid[tg])
+    return _untile(depth, width, height), _untile(vid, width, height)
+
+
+def _fma_planes(px: Tensor, py: Tensor, blk: Tensor, n: int) -> Tensor:
+    """(C, 5, n, PIX) f32: the planes px·a + py·b + c of the first n slots of
+    the (C, 3, 5R) blocks, rounded as XLA's CPU dot over (px, py, 1) does, a
+    fused multiply-add chain: round(fma(py, b, round(px·a)) + c), the fused
+    step formed exactly in float64."""
+    c_n = blk.shape[0]
+    r = blk.shape[-1] // N_DEPTH_PLANES
+    a, b, c = (blk[:, i].reshape(c_n, N_DEPTH_PLANES, r)[..., :n, None] for i in range(3))
+    t1 = px * a
+    t2 = (py.double() * b.double() + t1.double()).float()
+    return t2 + c
+
+
+def rasterize_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int) -> tuple[Tensor, Tensor]:
+    """Depth and vid of the meshlets listed per 64² tile (the JAX package's
+    `rasterize_reference`): `coeff_mat` (VM, 3, 5R) from
+    `raster_depth.pack_coeff_matrix`, `tile_list` (T, K) meshlet or -1.
+    Every entry ≥ 0 is folded, in order of k (`fold_live_pairs`), its planes
+    in float32 at global pixel centres. Returns (depth (H, W) f32, vid (H, W)
+    i32).
+
+    The pairs are walked in chunks of tiles whose largest temporary (the
+    float64 fused step over every slot) stays within `REF_CHUNK_BYTES`; the
+    tiles are independent, so the chunking does not change the result."""
+    dev = coeff_mat.device
+    tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+    if tile_list.shape[0] != tx * ty:
+        raise ValueError(f"{tile_list.shape[0]} tile rows for a {width}×{height} image")
+    if coeff_mat.shape[0] == 0:
+        tile_list = tile_list[:, :0]
+    lin = torch.arange(TILE * TILE, device=dev)
+    lx, ly = lin % TILE, torch.div(lin, TILE, rounding_mode="floor")
+
+    def planes(blk: Tensor, tg: Tensor, n: int) -> Tensor:
+        px = ((tg % tx) * TILE)[:, None, None, None] + lx
+        py = (torch.div(tg, tx, rounding_mode="floor") * TILE)[:, None, None, None] + ly
+        return _fma_planes(px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5, blk, n)
+
+    chunk = max(1, REF_CHUNK_BYTES // (coeff_mat.shape[-1] * TILE * TILE * 8))
+    pairs = walk_live_pairs(coeff_mat, tile_list, tile_list >= 0, planes, chunk)
+    return fold_live_pairs(pairs, tx * ty, width, height, dev)
 
 
 def run_tiles(entries, comb, counts, near_r, width, height):

@@ -40,11 +40,19 @@ from __future__ import annotations
 
 import torch
 
-from .raster3d import TILE, _split_hilo, _tile_local_pixels, plane_region_reject
+from .raster3d import (
+    N_DEPTH_PLANES,
+    TILE,
+    _split_hilo,
+    _tile_local_pixels,
+    _untile,
+    fold_live_pairs,
+    plane_region_reject,
+    walk_live_pairs,
+)
 
 Tensor = torch.Tensor
 
-N_DEPTH_PLANES = 5  # e0 e1 e2 | zn wd
 SLOTS = 64  # triangles per meshlet, as the kernel takes them
 TILES_PER_CHUNK = 16  # plain version: live tiles evaluated together per entry
 SUB = 32  # the kernel's sub-tile side
@@ -72,99 +80,39 @@ def rasterize_depth_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, 
     """The plain PyTorch version of the CUDA kernel. Only live (tile, entry)
     pairs are evaluated: entry by entry, the tiles that hold it, in chunks of
     TILES_PER_CHUNK. Returns (depth (H, W) f32, vid (H, W) i32)."""
-    dev = coeff_mat.device
     tx, ty = _tile_grid(width, height)
-    n_tiles = tx * ty
-    if tile_list.shape[0] != n_tiles:
+    if tile_list.shape[0] != tx * ty:
         raise ValueError(f"{tile_list.shape[0]} tile rows for a {width}×{height} map")
-    r = coeff_mat.shape[-1] // N_DEPTH_PLANES
-    xl, yl = _tile_local_pixels(dev)
-    slot_iota = torch.arange(r, dtype=torch.int32, device=dev)[None, :, None]
-    depth = torch.zeros((n_tiles, TILE * TILE), dtype=torch.float32, device=dev)
-    vid = torch.full((n_tiles, TILE * TILE), -1, dtype=torch.int32, device=dev)
-    cnt = (tile_list >= 0).sum(1)
-    for k in range(int(cnt.max()) if n_tiles else 0):
-        live = torch.nonzero(cnt > k)[:, 0]
-        for c0 in range(0, live.numel(), TILES_PER_CHUNK):
-            tg = live[c0 : c0 + TILES_PER_CHUNK]
-            vm = torch.clamp(tile_list[tg, k], min=0).to(torch.int32)
-            blk = coeff_mat[vm.long()]  # (C, 3, 5R)
-            # A slot whose e0 plane is a negative constant (every invalid
-            # triangle: a = b = 0, c = -1e30) covers no pixel, so slots past
-            # the chunk's last live one change neither the max nor the first
-            # max: evaluate the prefix only.
-            dead = (blk[:, 0, :r] == 0) & (blk[:, 1, :r] == 0) & (blk[:, 2, :r] < 0)
-            n_live = int(torch.nonzero(~dead.all(0)).max()) + 1 if bool((~dead).any()) else 0
-            if n_live == 0:
-                continue
-            x0 = ((tg % tx) * TILE).to(torch.float32)[:, None]
-            y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None]
-            a, b, c = blk[:, 0], blk[:, 1], blk[:, 2]
-            cp = (c + x0 * a) + y0 * b  # tile-local constant
-            (a_h, a_l), (b_h, b_l), (c_h, c_l) = (_split_hilo(v[..., None]) for v in (a, b, cp))
-
-            def plane(p: int) -> Tensor:  # (C, n_live, PIX)
-                s = slice(p * r, p * r + n_live)
-                return ((((a_h[:, s] * xl + b_h[:, s] * yl) + c_h[:, s]) + a_l[:, s] * xl) + b_l[:, s] * yl) + c_l[:, s]
-
-            zn, wd = plane(3), plane(4)
-            cover = (plane(0) >= 0) & (plane(1) >= 0) & (plane(2) >= 0) & (wd > 0) & (zn >= 0) & (zn <= wd)
-            zm = torch.where(cover, zn / torch.where(wd > 0, wd, 1.0), -1.0)
-            best = zm.max(1).values  # (C, PIX)
-            arg = torch.where(zm >= best[:, None], slot_iota[:, :n_live], 1 << 20).min(1).values
-            better = best > depth[tg]
-            depth[tg] = torch.where(better, best, depth[tg])
-            vid[tg] = torch.where(better, vm[:, None] * 256 + arg, vid[tg])
-
-    def untile(a: Tensor) -> Tensor:
-        a = a.reshape(ty, tx, TILE, TILE).transpose(1, 2)
-        return a.reshape(ty * TILE, tx * TILE)[:height, :width].contiguous()
-
-    return untile(depth), untile(vid)
-
-
-def _untile(a: Tensor, width: int, height: int) -> Tensor:
-    tx, ty = _tile_grid(width, height)
-    a = a.reshape(ty, tx, TILE, TILE).transpose(1, 2)
-    return a.reshape(ty * TILE, tx * TILE)[:height, :width].contiguous()
+    pairs = _live_pair_planes(coeff_mat, tile_list, width, height)
+    return fold_live_pairs(pairs, tx * ty, width, height, coeff_mat.device)
 
 
 def _live_pair_planes(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int, k0: int = 0,
                       k1: int | None = None):
-    """The plain version's evaluation of the live (tile, entry) pairs with
-    k0 ≤ entry < k1, entry by entry, in chunks of TILES_PER_CHUNK tiles:
-    yields (tiles (C,), entry k, meshlets (C,), cover (C, n, PIX), z (C, n, PIX))
-    over the chunk's slots up to its last real one (the slots past it cover
-    nothing), z = -1 where a slot does not cover."""
+    """The plain version's evaluation of the live (tile, entry) pairs (each
+    tile's first `cnt` entries) with k0 ≤ entry < k1, entry by entry, in
+    chunks of TILES_PER_CHUNK tiles (`raster3d.walk_live_pairs`): yields
+    (tiles (C,), entry k, meshlets (C,), cover (C, n, PIX), z (C, n, PIX))
+    over the chunk's slots up to its last real one, z = -1 where a slot does
+    not cover. The planes are the kernel's: the tile-local constant, each
+    coefficient split into bf16 hi and lo parts, at tile-local centres."""
     dev = coeff_mat.device
     tx, _ = _tile_grid(width, height)
     r = coeff_mat.shape[-1] // N_DEPTH_PLANES
     xl, yl = _tile_local_pixels(dev)
+
+    def planes(blk: Tensor, tg: Tensor, n: int) -> Tensor:  # (C, 5, n, PIX)
+        x0 = ((tg % tx) * TILE).to(torch.float32)[:, None]
+        y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None]
+        a, b, c = blk[:, 0], blk[:, 1], blk[:, 2]
+        cp = (c + x0 * a) + y0 * b  # tile-local constant
+        (a_h, a_l), (b_h, b_l), (c_h, c_l) = (
+            (p.reshape(blk.shape[0], N_DEPTH_PLANES, r)[..., :n, None] for p in _split_hilo(v)) for v in (a, b, cp))
+        return ((((a_h * xl + b_h * yl) + c_h) + a_l * xl) + b_l * yl) + c_l
+
     cnt = (tile_list >= 0).sum(1)
-    k_stop = min(tile_list.shape[1] if k1 is None else k1, int(cnt.max()) if cnt.numel() else 0)
-    for k in range(k0, k_stop):
-        live = torch.nonzero(cnt > k)[:, 0]
-        for c0 in range(0, live.numel(), TILES_PER_CHUNK):
-            tg = live[c0 : c0 + TILES_PER_CHUNK]
-            vm = torch.clamp(tile_list[tg, k], min=0).to(torch.int32)
-            blk = coeff_mat[vm.long()]
-            dead = (blk[:, 0, :r] == 0) & (blk[:, 1, :r] == 0) & (blk[:, 2, :r] < 0)
-            n_live = int(torch.nonzero(~dead.all(0)).max()) + 1 if bool((~dead).any()) else 0
-            if n_live == 0:
-                continue
-            x0 = ((tg % tx) * TILE).to(torch.float32)[:, None]
-            y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None]
-            a, b, c = blk[:, 0], blk[:, 1], blk[:, 2]
-            cp = (c + x0 * a) + y0 * b
-            (a_h, a_l), (b_h, b_l), (c_h, c_l) = (_split_hilo(v[..., None]) for v in (a, b, cp))
-
-            def plane(p: int) -> Tensor:
-                s = slice(p * r, p * r + n_live)
-                return ((((a_h[:, s] * xl + b_h[:, s] * yl) + c_h[:, s]) + a_l[:, s] * xl) + b_l[:, s] * yl) + c_l[:, s]
-
-            zn, wd = plane(3), plane(4)
-            cover = (plane(0) >= 0) & (plane(1) >= 0) & (plane(2) >= 0) & (wd > 0) & (zn >= 0) & (zn <= wd)
-            yield tg, k, vm, cover, torch.where(cover, zn / torch.where(wd > 0, wd, 1.0), -1.0)
+    live = torch.arange(tile_list.shape[1], device=dev)[None, :] < cnt[:, None]
+    return walk_live_pairs(coeff_mat, tile_list, live, planes, TILES_PER_CHUNK, k0, k1)
 
 
 def _region_reject(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int, rw: int, rh: int) -> Tensor:

@@ -1,5 +1,4 @@
-"""Material texture sampling on the G-buffer path (counterpart of the packed-tap
-half of `oxylus_tpu/ops/sampling.py`).
+"""Texture sampling (counterpart of `oxylus_tpu/ops/sampling.py`).
 
 The atlas (A, A, 4) uint8 is the engine's bindless texture table. Samplers
 take normalised texture-local UVs and an atlas rect (u0, v0, u1, v1).
@@ -15,6 +14,9 @@ take normalised texture-local UVs and an atlas rect (u0, v0, u1, v1).
   each one tap of the packed table; `features` picks which.
 - `perturb_normal`: the sampled tangent-space normal applied to the
   interpolated shading normal with the per-triangle tangent.
+- `sample_atlas_bilinear`: the decode path's sampler (`ops/decode3d.py`):
+  four taps of the uint8 atlas per sample, each clamped inside the rect
+  window, with the material's wrap and filter mode.
 
 Every function evaluates the JAX expressions in their order, op by op, so the
 outputs round as the JAX package's do (`tests/test_torch_sampling.py`). A
@@ -46,6 +48,44 @@ def _wrap_uv(uv: Tensor, mode: Tensor) -> Tensor:
     clamp = torch.clamp(uv, 0.0, 1.0)
     is_clamp = (mode == 1) | (mode == 3)
     return torch.where(is_clamp[..., None], clamp, repeat)
+
+
+def sample_atlas_bilinear(atlas: Tensor, rect: Tensor, uv: Tensor, sampling_mode: Tensor | None = None) -> Tensor:
+    """Sample the (A, A, 4) uint8 atlas at the local UVs `uv` (..., 2) inside
+    the normalised rects `rect` (..., 4) = (u0, v0, u1, v1): the UV wrapped by
+    `sampling_mode` (0/4 repeat, 1/3 clamp; None: repeat), then bilinear, or
+    the nearest texel for modes 2 and 3, each tap clamped inside the rect's
+    texels and the atlas. Returns (..., 4) f32 in [0, 1]."""
+    a = atlas.shape[0]
+    if sampling_mode is None:
+        sampling_mode = torch.zeros(uv.shape[:-1], dtype=torch.int32, device=uv.device)
+    uv = _wrap_uv(uv, sampling_mode)
+    u0, v0, u1, v1 = rect.unbind(-1)
+    px = (u0 + uv[..., 0] * (u1 - u0)) * a - 0.5
+    py = (v0 + uv[..., 1] * (v1 - v0)) * a - 0.5
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    fx = (px - x0)[..., None]
+    fy = (py - y0)[..., None]
+    # the taps stay inside the rect's texels: bilinear never bleeds into an atlas neighbour
+    rx0 = torch.ceil(u0 * a - 0.5)
+    ry0 = torch.ceil(v0 * a - 0.5)
+    rx1 = torch.floor(u1 * a - 0.5)
+    ry1 = torch.floor(v1 * a - 0.5)
+
+    def tap(xi: Tensor, yi: Tensor) -> Tensor:
+        x = torch.clamp(torch.minimum(torch.maximum(xi, rx0), rx1).to(torch.int32), 0, a - 1)
+        y = torch.clamp(torch.minimum(torch.maximum(yi, ry0), ry1).to(torch.int32), 0, a - 1)
+        return atlas[y.long(), x.long()].to(torch.float32) / 255.0
+
+    nearest = (sampling_mode == 2) | (sampling_mode == 3)
+    c00 = tap(x0, y0)
+    c10 = tap(x0 + 1, y0)
+    c01 = tap(x0, y0 + 1)
+    c11 = tap(x0 + 1, y0 + 1)
+    bilinear = c00 * (1 - fx) * (1 - fy) + c10 * fx * (1 - fy) + c01 * (1 - fx) * fy + c11 * fx * fy
+    near = tap(torch.round(px), torch.round(py))
+    return torch.where(nearest[..., None], near, bilinear)
 
 
 def pack_atlas_taps(atlas: Tensor, dtype=torch.float32) -> Tensor:

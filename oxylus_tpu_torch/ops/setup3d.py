@@ -61,7 +61,10 @@ def setup_triangles(
 ) -> dict:
     """Per-meshlet per-triangle raster data: coeffs (VM, 64, 5, 3), attr_planes
     (VM, 64, 9, 3), tri_valid (VM, 64), packed_id, per-meshlet and per-triangle
-    screen bounds, and screen xyz."""
+    screen bounds, and screen xyz; for the decode path (`ops/decode3d.py`) the
+    clip-space vertices clip (VM, 64, 3, 4), the vertex pack packed_verts
+    (VM, 64, 3, 8), slots_per_tri (1: no near-plane clipping) and tri_of_slot
+    (VM, 64), each slot's triangle."""
     vm = vm_meshlet.shape[0]
     dev = vm_meshlet.device
     ml = vm_meshlet.long()
@@ -165,6 +168,8 @@ def setup_triangles(
         "attr_planes": attr_planes,
         "tri_valid": tri_valid,
         "packed_id": packed_id,
+        "slots_per_tri": 1,
+        "tri_of_slot": tri_slots.expand(vm, TRIS_PER_MESHLET),
         "ml_xmin": txmin.min(-1).values,
         "ml_xmax": txmax.max(-1).values,
         "ml_ymin": tymin.min(-1).values,
@@ -173,6 +178,8 @@ def setup_triangles(
         "tri_xmax": txmax,
         "tri_ymin": tymin,
         "tri_ymax": tymax,
+        "clip": clip,
+        "packed_verts": packed,
         "sxyz": torch.stack([sx, sy, sz], dim=-1),
     }
 
@@ -185,7 +192,6 @@ def compact_triangles(
     group: int = 64,        # triangles per dense raster group
     width: float = 1920.0,
     height: float = 1080.0,
-    mat_rows: Tensor | None = None,
 ) -> dict:
     """Re-group a pass's surviving triangles into dense raster groups of
     `group` slots (the reference's `cull_triangles` compaction).
@@ -203,11 +209,11 @@ def compact_triangles(
     -1e30, never covering), attr_planes (G, group, 9, 3), tri_valid, the
     groups' screen bounds ml_xmin/xmax/ymin/ymax and nearest depth ml_near,
     slot_material / slot_instance / packed_id per dense slot (0, 0, -1 where
-    unused), slot_rows (None), count (surviving triangles, 0-d int32), and,
-    beyond the JAX dict, tri_z (G, group): each slot's nearest depth (-1
-    where unused), the column `raster3d.build_tile_comb` reads."""
-    if mat_rows is not None:
-        raise NotImplementedError("texturing (the slot_rows material rows) is not ported to oxylus_tpu_torch yet")
+    unused), slot_rows (None: the renderer reads the material rows through
+    `slot_material`, so the JAX function's `mat_rows` is not taken), count
+    (surviving triangles, 0-d int32), and, beyond the JAX dict, tri_z (G,
+    group): each slot's nearest depth (-1 where unused), the column
+    `raster3d.build_tile_comb` reads."""
     dev = tri_mask.device
     vm, r = tri_mask.shape
     n = vm * r
@@ -293,8 +299,8 @@ def passthrough_groups(setup: dict, tri_mask: Tensor, slot_material: Tensor, slo
     """Dense-group dict without re-grouping: source meshlets are the raster
     groups. The fields the shared slot rows read (`raster3d.build_tile_comb`)
     and those the group raster's binning and early-out read (group bounds,
-    ml_near, count), as the JAX function gives them; the tile path's binning
-    reads `passthrough_bounds`."""
+    ml_near, count), as the JAX function gives them, and slot_rows None; the
+    tile path's binning reads `passthrough_bounds`."""
     vm, r = tri_mask.shape
     tz = torch.max(setup["sxyz"][..., 2], dim=-1).values  # (VM, R) per-tri nearest z
     coeffs = torch.where(tri_mask[..., None, None], setup["coeffs"], 0.0)
@@ -313,6 +319,7 @@ def passthrough_groups(setup: dict, tri_mask: Tensor, slot_material: Tensor, slo
         "slot_material": slot_material[:, None].expand(vm, r),
         "slot_instance": slot_instance[:, None].expand(vm, r),
         "packed_id": torch.where(tri_mask, setup["packed_id"], -1),
+        "slot_rows": None,
         "count": tri_mask.sum(dtype=torch.int32),
         "tri_z": torch.where(tri_mask, tz, -1.0),
     }

@@ -1,7 +1,7 @@
 """Where the time goes on the card, for the fused simulate-and-render 3D frame
 and for the 2D frame.
 
-    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|4|3|2] [--raster-path tile|group]
+    python -m oxylus_tpu_torch.profile_frame3d [--frames N] [--config 5|4|3|2] [--raster-path tile|group] [--decode]
 
 Builds the full config-5 scene (`frame5.build_frame5_scene`, 1920×1080, 150
 objects, 255 boxes; atmosphere, clipmap shadows, GTAO, SSR), with
@@ -13,7 +13,9 @@ Forward2D particle layer), or with `--config 2` the 2D scene
 (`frame2d.build_frame2d_scene`, 512 sprites, 2 emitters); with
 `--raster-path group` a 3D scene renders through the group raster route
 (`RenderSpec(raster_path="group", compact_raster=True)`: `compact_triangles`
-and the group kernel, a stage of its own). It runs 2 warm-up
+and the group kernel, a stage of its own), with `--decode` through the decode
+path (`RenderSpec(use_pallas=False)`: the meshlet binning,
+`rasterize_reference` and `decode_visbuffer`, a stage each). It runs 2 warm-up
 frames and FRAMES untraced frames, then traces FRAMES more with
 `torch.profiler` (CUPTI) and prints, on labelled lines (`frame3d`, or
 `frame2d` for config 2):
@@ -83,7 +85,9 @@ STAGES_3D = (
     (raster3d, "build_tile_comb", "tile comb (shared slot rows)"),
     (raster3d, "pack_tile_blocks", "tile blocks (slot tables)"),
     (renderer3d, "compact_triangles", "group route: compact_triangles"),
-    (renderer3d, "bin_meshlets_to_tiles", "group route: binning"),
+    (renderer3d, "bin_meshlets_to_tiles", "meshlet binning (group route, decode path)"),
+    (raster3d, "rasterize_reference", "decode path: rasterize_reference"),
+    (renderer3d, "decode_visbuffer", "decode path: decode_visbuffer"),
     (raster_groups, "run_groups", "group raster"),
     (hiz, "build_hiz", "HiZ"),
     (renderer3d, "alpha_mask_merge", "masked pass: alpha cutoff and merge"),
@@ -217,6 +221,7 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--config", type=int, choices=sorted(BUILDERS, reverse=True), default=5)
     ap.add_argument("--raster-path", choices=("tile", "group"), default="tile")
+    ap.add_argument("--decode", action="store_true", help="render through the decode path (use_pallas=False)")
     args = ap.parse_args()
     frames = args.frames
     if not torch.cuda.is_available():
@@ -225,12 +230,14 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
     two_d = args.config == 2
     tag = "frame2d" if two_d else "frame3d"
-    if two_d and args.raster_path != "tile":
-        raise SystemExit("--raster-path is a 3D option")
-    print(f"{tag} config {args.config}, raster path {args.raster_path}")
+    if two_d and (args.raster_path != "tile" or args.decode):
+        raise SystemExit("--raster-path and --decode are 3D options")
+    print(f"{tag} config {args.config}, raster path {'decode' if args.decode else args.raster_path}")
     scene, kw = BUILDERS[args.config](1920, 1080, device="cuda")
     if args.raster_path == "group":
         kw["render_spec"] = dataclasses.replace(kw["render_spec"], raster_path="group", compact_raster=True)
+    if args.decode:
+        kw["render_spec"] = dataclasses.replace(kw["render_spec"], use_pallas=False)
     runner = runtime.SceneRunner(scene, **kw)
     runner.run(2)
     t0 = time.perf_counter()

@@ -20,7 +20,14 @@ entry, slot tables per (tile, entry)); "group" re-groups each pass's triangles
 into dense groups (`compact_triangles`, or the source meshlets with
 `compact_raster=False`), bins the groups per tile and rasters them with
 `raster_groups` (vid = group·256 + slot, slot tables per dense slot, the late
-pass's vids after the early pass's groups).
+pass's vids after the early pass's groups). With `RenderSpec(use_pallas=False)`
+the frame takes the JAX package's decode path instead, the path its goldens
+were made on: each pass bins the visible meshlets to 64-px tiles
+(`bin_meshlets_to_tiles`), rasters depth and vid = (vm << 8) | slot with
+`raster3d.rasterize_reference`, and `ops/decode3d.decode_visbuffer` rebuilds
+the G-buffer from the vids, sampling every texture kind at full rate whatever
+`textured` says; that path runs no masked pass and sets no slot tables. HiZ
+and the shadows' depth raster run their kernels on every path.
 
 The JAX graph's device-side branches (`lax.cond` / `lax.switch`) are host
 decisions here, taken the same way. Host reads per frame: one at the top
@@ -29,9 +36,11 @@ the aerial key moved since the carried frame), with occlusion one for
 whether anything was revealed, and with shadows one for the six clipmap
 levels' branches (`render/shadows.py`).
 
-Texturing and alpha masks (the tile route). With `textured`, a pixel
-resolves its 32-lane material row (`sampling.pack_material_tables`, stored as
-float16 as the JAX package's slot rows are) through its slot's material. The
+Texturing and alpha masks (the tile and group routes). With `textured`, a
+pixel resolves its 32-lane material row (`sampling.pack_material_tables`;
+rounded to float16 on the tile route, as the JAX tile route's slot rows are,
+and float32 on the group route, as the JAX group route's are) through its
+slot's material, at the route's slot stride. The
 G-buffer is then textured from the packed
 bfloat16 atlas taps (`ops/sampling.py`): albedo and the tangent-space normal
 sampled at half resolution, metallic-roughness with its shared-rect occlusion
@@ -54,8 +63,7 @@ camera's position, forward and up) equals the carried one. The key leaves out
 the camera's intrinsics and collides on swapped transforms, as in the JAX
 package (`tests/test_torch_render3d.py` names both).
 
-Not ported yet, and refused with NotImplementedError: texturing and alpha
-masks on the group route, debug views and the non-kernel raster path.
+Not ported yet, and refused with NotImplementedError: debug views.
 """
 
 from __future__ import annotations
@@ -68,9 +76,10 @@ import torch
 
 from ..assets.material import FLAG_ALPHA_MASK
 from ..ops import hiz as hiz_ops
-from ..ops import raster3d, raster_groups
+from ..ops import raster3d, raster_depth, raster_groups
 from ..ops import sampling
 from ..ops.cull import cull_instances, cull_meshlets, expand_meshlet_instances
+from ..ops.decode3d import decode_visbuffer
 from ..ops.setup3d import (
     bin_meshlets_to_tiles,
     bin_triangles_per_tile,
@@ -121,7 +130,7 @@ class RenderSpec:
     max_meshlet_instances: int = 1 << 13
     max_visible_meshlets: int = 4096
     meshlets_per_tile: int = 64
-    use_pallas: bool = True      # the kernel raster; False (the JAX decode path) is not ported
+    use_pallas: bool = True      # the G-buffer raster; False: the decode path (rasterize_reference, decode_visbuffer)
     tile: int = 64               # the tile route takes 64; the group route 32 or 64
     raster_group: int = 64       # slots per dense group (group route, compact_raster; ≤ 128)
     compact_raster: bool = True  # group route: compact_triangles, else the source meshlets as groups
@@ -311,19 +320,16 @@ class RendererInstance:
         "final", carried state under "carry" — feed it back as `prev`).
         `textured` samples the material textures of `texture_features`
         (albedo, normal, mr, emissive) on the G-buffer; `alpha_masked` rasters
-        the alpha-masked materials in their own pass (the tile route).
+        the alpha-masked materials in their own pass (both raster routes; the
+        decode path takes neither: it samples every kind, masks none).
         `binning_stats` adds "bin_pairs", the (tile, entry) pairs every pass
         binned, to the returned dict (a device tensor)."""
         spec = self.spec
         if enable_gtao is None:
             enable_gtao = config.vbgtao_enable
-        group = spec.raster_path == "group"
         for on, what in (
-            (textured and group, "texturing on the group raster route"),
-            (alpha_masked and group, "alpha-masked materials on the group raster route"),
             (bool(config.debug_view), "debug views"),
             (spec.raster_path not in ("tile", "group"), f"raster_path={spec.raster_path!r}"),
-            (not spec.use_pallas, "the decode raster path (use_pallas=False)"),
         ):
             if on:
                 raise _not_ported(what)
@@ -404,32 +410,44 @@ class RendererInstance:
             gscene, world, vm_inst, vm_ml, vm_valid, camera.view_projection, w, h,
             backface_enabled=config.culling_triangle,
         )
+        # the G-buffer raster (tile or group route), or the decode path: the
+        # JAX package's XLA raster and full-rate decode, which samples every
+        # texture kind and runs no masked pass
+        use_gbuffer_raster = spec.use_pallas
+        textured = textured and use_gbuffer_raster
+        alpha_masked = alpha_masked and use_gbuffer_raster
         # the slot tables' stride: per (tile, entry) on the tile route, per dense group slot on the group route
         use_tile_raster = spec.raster_path == "tile"
         if use_tile_raster:
             n_slots_r = spec.tris_per_tile
         else:
             n_slots_r = spec.raster_group if spec.compact_raster else setup["tri_valid"].shape[1]
-        mat_idx = gscene.inst_material[vm_inst.long()].long()
-        # the opaque passes leave out the meshlets whose material is alpha-masked
-        is_masked_vm = (materials.flags[mat_idx] & FLAG_ALPHA_MASK) > 0 if alpha_masked else None
-        opaque_f = ~is_masked_vm if alpha_masked else None
-        consts_m = torch.cat(
-            [materials.albedo_color[:, :3], materials.metallic_factor[:, None],
-             materials.roughness_factor[:, None], materials.emissive_color],
-            dim=1,
-        )  # (M, 8) material-indexed constants
-        if use_tile_raster:
+        if use_gbuffer_raster:
+            mat_idx = gscene.inst_material[vm_inst.long()].long()
+            # the opaque passes leave out the meshlets whose material is alpha-masked
+            is_masked_vm = (materials.flags[mat_idx] & FLAG_ALPHA_MASK) > 0 if alpha_masked else None
+            opaque_f = ~is_masked_vm if alpha_masked else None
+            consts_m = torch.cat(
+                [materials.albedo_color[:, :3], materials.metallic_factor[:, None],
+                 materials.roughness_factor[:, None], materials.emissive_color],
+                dim=1,
+            )  # (M, 8) material-indexed constants
+        else:
+            opaque_f = None
+            coeff_mat = raster_depth.pack_coeff_matrix(setup["coeffs"], setup["tri_valid"])
+        if use_gbuffer_raster and use_tile_raster:
             # the per-slot row matrix is built once from the full visible set and
             # shared by the passes (a pass's entries only reference its valid slots)
             dense_full = passthrough_groups(setup, setup["tri_valid"], mat_idx, vm_inst)
             comb = raster3d.build_tile_comb(dense_full, consts_m[dense_full["slot_material"].long()])
-        # the packed atlas taps and material rows the masked pass and the textured G-buffer sample
+        # the packed atlas taps and material rows the masked pass and the textured
+        # G-buffer sample: on the tile route rounded to float16 where textured, as
+        # the JAX tile route's slot rows are; the JAX group route gathers float32 rows
         taps = sampling.pack_atlas_taps(atlas, dtype=torch.bfloat16) if textured or alpha_masked else None
         mat_rows = None
-        if textured:
+        if textured and use_tile_raster:
             mat_rows = _textured_rows(materials)
-        elif alpha_masked:
+        elif textured or alpha_masked:
             mat_rows = sampling.pack_material_tables(materials)
         pass_pairs: list[Tensor] = []  # with binning_stats, each pass's binned (tile, entry) pairs
 
@@ -477,6 +495,22 @@ class RendererInstance:
                 tables = tuple(pad_tab(t, -1 if i == 2 else 0) for i, t in enumerate(tables))
             return d, v, gb, ov, tables
 
+        def decode_pass(vis_mask: Tensor, tri_filter: Tensor | None = None, k2: int | None = None,
+                        k_groups: int | None = None):
+            """One pass of the decode path → (depth, vid, None, bin_overflow,
+            None): the visible meshlets binned to 64-px tiles by their screen
+            bounds, rastered by `rasterize_reference`; vid = (vm << 8) | slot."""
+            masked = dict(setup)
+            masked["ml_xmax"] = torch.where(vis_mask, setup["ml_xmax"], -1e9)
+            masked["ml_xmin"] = torch.where(vis_mask, setup["ml_xmin"], 1e9)
+            tile_list, ov = bin_meshlets_to_tiles(masked, w, h, raster3d.TILE, spec.meshlets_per_tile)
+            if binning_stats:
+                pass_pairs.append((tile_list >= 0).sum())
+            d, v = raster3d.rasterize_reference(coeff_mat, tile_list, w, h)
+            return d, v, None, ov, None
+
+        run_pass = raster_pass if use_gbuffer_raster else decode_pass
+
         # conservative nearest depth per meshlet for occlusion testing
         ml_near = torch.where(setup["tri_valid"], setup["sxyz"][..., 2].max(-1).values, -1.0).max(-1).values
         bounds4 = (setup["ml_xmin"], setup["ml_xmax"], setup["ml_ymin"], setup["ml_ymax"])
@@ -484,32 +518,35 @@ class RendererInstance:
         use_occlusion = config.culling_occlusion and "hiz" in prev
         if use_occlusion:
             early_vis = hiz_ops.occlusion_test(prev["hiz"], *bounds4, ml_near, w, h) & vm_valid
-            depth, vid, gb_img, overflow, slot_tables = raster_pass(early_vis, opaque_f)
+            depth, vid, gb_img, overflow, slot_tables = run_pass(early_vis, opaque_f)
             hiz = hiz_ops.build_hiz(depth)
             late_vis = hiz_ops.occlusion_test(hiz, *bounds4, ml_near, w, h) & vm_valid & ~early_vis
             # the late pass exists only when something was revealed this frame
             if bool(late_vis.any()):
-                d2, v2, gb2, overflow2, tables2 = raster_pass(
+                d2, v2, gb2, overflow2, tables2 = run_pass(
                     late_vis, opaque_f,
                     k2=min(spec.tris_per_tile_late, spec.tris_per_tile),
                     k_groups=min(spec.bin_groups_late, spec.bin_groups_per_tile),
                 )
-                # late vids index the second half of the combined slot tables
-                groups_per_pass = tables2[0].shape[0] // n_slots_r
-                v2 = torch.where(v2 >= 0, v2 + groups_per_pass * 256, v2)
+                if slot_tables is not None:
+                    # late vids index the second half of the combined slot tables
+                    groups_per_pass = tables2[0].shape[0] // n_slots_r
+                    v2 = torch.where(v2 >= 0, v2 + groups_per_pass * 256, v2)
                 better = d2 > depth
                 depth = torch.where(better, d2, depth)
                 vid = torch.where(better, v2, vid)
-                gb_img = torch.where(better[..., None], gb2, gb_img)
+                if gb_img is not None:
+                    gb_img = torch.where(better[..., None], gb2, gb_img)
                 hiz = hiz_ops.build_hiz(depth)
             else:
                 overflow2 = torch.zeros((), dtype=torch.int32, device=dev)
-                tables2 = tuple(torch.zeros_like(t) for t in slot_tables)
-            slot_tables = tuple(torch.cat([a, b]) for a, b in zip(slot_tables, tables2))
+                tables2 = None if slot_tables is None else tuple(torch.zeros_like(t) for t in slot_tables)
+            if slot_tables is not None:
+                slot_tables = tuple(torch.cat([a, b]) for a, b in zip(slot_tables, tables2))
             carry["hiz"] = hiz
             overflow = overflow + overflow2
         else:
-            depth, vid, gb_img, overflow, slot_tables = raster_pass(vm_valid, opaque_f)
+            depth, vid, gb_img, overflow, slot_tables = run_pass(vm_valid, opaque_f)
             if config.culling_occlusion:
                 carry["hiz"] = hiz_ops.build_hiz(depth)
 
@@ -530,15 +567,19 @@ class RendererInstance:
         ctx.update(depth=depth, visbuffer=vid, setup=setup, bin_overflow=overflow, expand_overflow=expand_overflow)
         if binning_stats:
             ctx["bin_pairs"] = torch.stack(pass_pairs).sum()
-        ctx["slot_material"], ctx["slot_instance"], ctx["slot_packed_id"] = slot_tables
-        ctx["slot_group"] = n_slots_r
+        if slot_tables is not None:
+            ctx["slot_material"], ctx["slot_instance"], ctx["slot_packed_id"] = slot_tables
+            ctx["slot_group"] = n_slots_r
         # surfaced through the carry so callers can assert no capacity dropped work
         carry["expand_overflow"] = expand_overflow
         carry["bin_overflow"] = overflow
         ctx = self._run_cbs(RenderStage.VISBUFFER_ENCODE, "after", ctx)
 
         # ---- Decode → GBuffer --------------------------------------------
-        gbuffer = raster3d.gbuffer_from_raster(gb_img, vid, depth, torch.linalg.inv(camera.view_projection))
+        if use_gbuffer_raster:
+            gbuffer = raster3d.gbuffer_from_raster(gb_img, vid, depth, torch.linalg.inv(camera.view_projection))
+        else:
+            gbuffer = decode_visbuffer(vid, setup, vm_inst, gscene, world, materials, atlas, width=w, height=h)
         if textured:
             gbuffer = texture_gbuffer(gbuffer, vid, slot_tables[0], n_slots_r, mat_rows, taps, atlas.shape[0],
                                       texture_features)

@@ -144,11 +144,11 @@ def node_worlds(nodes) -> np.ndarray:
     return world
 
 
-def prepass_caps(meshes, nodes, width: int, height: int, device) -> dict:
+def prepass_caps(meshes, nodes, width: int, height: int, device, cap_mult: float = CAP_MULT) -> dict:
     """The cull prepass at the bench camera: the meshlet instances the
     selected LODs expand to and the meshlets that survive the cull, and the
-    capacities they give (4× headroom, rounded up to a power of two, floors
-    4096 and 1024)."""
+    capacities they give (`cap_mult` headroom, 4× by default, rounded up to
+    a power of two, floors 4096 and 1024)."""
     dev = resolve_device(device)
     gscene = upload_meshes(meshes, [(mi, ni, 0) for ni, (mi, *_r) in enumerate(nodes)], device=dev)
     world = torch.from_numpy(node_worlds(nodes)).to(dev)
@@ -164,16 +164,18 @@ def prepass_caps(meshes, nodes, width: int, height: int, device) -> dict:
                                    capacity=1 << 16)
     n_exp, n_vis = (int(v) for v in torch.stack([mi_valid.sum(), count.to(torch.int64)]).tolist())
     return {"expanded": n_exp, "visible": n_vis,
-            "max_meshlet_instances": 1 << max(12, int(math.ceil(math.log2(max(CAP_MULT * n_exp, 1))))),
-            "max_visible_meshlets": 1 << max(10, int(math.ceil(math.log2(max(CAP_MULT * n_vis, 1)))))}
+            "max_meshlet_instances": 1 << max(12, int(math.ceil(math.log2(max(cap_mult * n_exp, 1))))),
+            "max_visible_meshlets": 1 << max(10, int(math.ceil(math.log2(max(cap_mult * n_vis, 1)))))}
 
 
 def build_sponza_scene(width: int = 1920, height: int = 1080, *, n_meshes: int = 120, n_materials: int = 24,
-                       seed: int = 42, device=None):
+                       seed: int = 42, device=None, cap_mult: float = CAP_MULT, raster: dict | None = None):
     """Build the atrium on `device` (the card unless "cpu") and return (scene,
     SceneRunner keyword arguments, info): info holds the generator's summary,
     the seconds of each host step, the prepass counts and capacities, and the
-    masked materials and meshes."""
+    masked materials and meshes. `cap_mult` is the capacities' headroom over
+    the prepass counts; `raster` overrides fields of `RASTER`, the bench's
+    raster settings."""
     dev = resolve_device(device)
     assets = atrium_assets(n_meshes, n_materials, seed)
     pixels, gpu_mats, mat_uuid = atrium_materials(assets["materials"], assets["images"], device=dev)
@@ -181,10 +183,10 @@ def build_sponza_scene(width: int = 1920, height: int = 1080, *, n_meshes: int =
     scene = Scene("atrium", spec=spec, device=dev)
     populate_sponza(scene, assets["nodes"], assets["mesh_mat"], mat_uuid)
     t0 = time.perf_counter()
-    caps = prepass_caps(assets["meshes"], assets["nodes"], width, height, dev)
+    caps = prepass_caps(assets["meshes"], assets["nodes"], width, height, dev, cap_mult)
     seconds = dict(assets["seconds"], prepass=time.perf_counter() - t0)
     render_spec = RenderSpec(width=width, height=height, max_meshlet_instances=caps["max_meshlet_instances"],
-                             max_visible_meshlets=caps["max_visible_meshlets"], **RASTER)
+                             max_visible_meshlets=caps["max_visible_meshlets"], **{**RASTER, **(raster or {})})
     masked = [k for k, f in enumerate(gpu_mats.flags.tolist()) if f & FLAG_ALPHA_MASK]
     runner_kw = dict(
         width=width, height=height, render_mode="3d", meshes=assets["meshes"], render_spec=render_spec,

@@ -229,11 +229,11 @@ def test_runner_routes_frame_state_matches_jax(runner_pair):
 
 
 def test_runner_refuses_unported_routes():
-    """What the port does not run yet raises: audio, and textured and
-    alpha-masked materials on the group raster route; a runner on another
+    """What the port does not run yet raises: audio; a runner on another
     device than its scene is refused. The 2D renderer, the 3D particle
-    composite, and textured and alpha-masked materials on the tile route are
-    taken now: the runner derives its texturing gates from the flag bits."""
+    composite, and textured and alpha-masked materials on both raster routes
+    are taken now: the runner derives its texturing gates from the flag bits,
+    and the group route renders them."""
     s = _pile_scene(TScene, tstate.SceneSpec)
     assert SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")._has_particles
     with pytest.raises(ValueError):  # the scene lives on the CPU
@@ -244,19 +244,24 @@ def test_runner_refuses_unported_routes():
 
     assert SceneRunner(s, render_mode="3d", use_megakernel=True, meshes=_cube_meshes(bake_mesh),
                        device="cpu")._has_particles
+    from oxylus_tpu_torch.render.camera import camera_matrices
     from oxylus_tpu_torch.render.renderer3d import RenderSpec
 
     for flag, what, gates in ((FLAG_HAS_ALBEDO, "texturing", (("albedo",), True, False)),
                               (FLAG_ALPHA_MASK, "alpha-masked", ((), False, True))):
         b = default_bindings(s.spec.padded_entities(), device="cpu")
         b.materials.flags[0] |= flag
-        runner = SceneRunner(s, render_mode="3d", meshes=_cube_meshes(bake_mesh), bindings=b, device="cpu",
-                             render_spec=RenderSpec(raster_path="group"))
-        assert (runner._texture_features, runner._textured, runner._has_alpha_mask) == gates
-        with pytest.raises(NotImplementedError, match=what):
-            runner.renderer3d.render(runner.state, runner.gscene, runner.active_camera(), b.materials, b.atlas,
-                                     runner.config, textured=runner._textured,
-                                     texture_features=runner._texture_features, alpha_masked=runner._has_alpha_mask)
+        runner = SceneRunner(s, width=64, height=48, render_mode="3d", meshes=_cube_meshes(bake_mesh), bindings=b,
+                             device="cpu", render_spec=RenderSpec(width=64, height=48, raster_path="group"))
+        assert (runner._texture_features, runner._textured, runner._has_alpha_mask) == gates, what
+        f = lambda v: torch.tensor(v, dtype=torch.float32)
+        cam = camera_matrices(position=f([0.0, 1.5, 6.0]), yaw=f(-np.pi / 2), pitch=f(-0.2), tilt=f(0.0),
+                              fov_deg=f(60.0), near=f(0.1), far=f(100.0), zoom=f(1.0),
+                              projection_kind=torch.tensor(0, dtype=torch.int32), aspect=f(64 / 48))
+        ctx = runner.renderer3d.render(runner.state, runner.gscene, cam, b.materials, b.atlas, runner.config,
+                                       textured=runner._textured, texture_features=runner._texture_features,
+                                       alpha_masked=runner._has_alpha_mask)
+        assert bool(torch.isfinite(ctx["final"]).all()) and ctx["slot_group"] == runner.renderer3d.spec.raster_group, what
         SceneRunner(s, render_mode="2d", bindings=b, device="cpu")  # the 2D path samples and masks itself
     audio = _pile_scene(TScene, tstate.SceneSpec, emitter=False)
     e = audio.create_entity("speaker")

@@ -97,11 +97,15 @@ def test_setup_triangles_matches_jax(case):
     np.testing.assert_array_equal(got["tri_valid"].numpy(), want["setup"]["tri_valid"])
     assert want["setup"]["tri_valid"].sum() > 0
     np.testing.assert_array_equal(got["packed_id"].numpy(), want["setup"]["packed_id"])
-    for k in ("coeffs", "attr_planes", "sxyz", "tri_xmin", "tri_xmax", "tri_ymin", "tri_ymax"):
+    for k in ("coeffs", "attr_planes", "sxyz", "tri_xmin", "tri_xmax", "tri_ymin", "tri_ymax", "clip"):
         g, w = got[k].numpy(), want["setup"][k]
         # 1e-6 relative to the largest coefficient of the same row
         scale = np.maximum(np.abs(w).max(-1, keepdims=True), 1e-30) if w.ndim > 2 else np.maximum(np.abs(w), 1.0)
         assert np.all(np.abs(g - w) <= 1e-6 * scale), k
+    # the keys the decode path reads (`ops/decode3d.py`)
+    np.testing.assert_array_equal(got["packed_verts"].numpy(), want["setup"]["packed_verts"])
+    np.testing.assert_array_equal(got["tri_of_slot"].numpy(), want["setup"]["tri_of_slot"])
+    assert got["slots_per_tri"] == want["setup"]["slots_per_tri"] == 1
 
 
 def test_passthrough_and_binning_match_exactly(case):
