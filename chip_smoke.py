@@ -19,8 +19,10 @@ group raster route (phase 13), the Hopper probes (phase 14), the
 Sponza-class atrium of config 4 with its textured and alpha-masked materials
 (phase 15) and on the group raster route (phase 18), the port's bench suite
 (phase 16), and the decode path (`RenderSpec(use_pallas=False)`) on the
-golden scene (phase 17a) and the config-5 runner (phase 17b), with bodies and
-the atrium made from a fixed seed. Every
+golden scene (phase 17a) and the config-5 runner (phase 17b), and the app
+path (phase 19: the config-5 scene with sound and a script through JSON, the
+asset manager and `App.run`), with bodies and the atrium made from a fixed
+seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -208,7 +210,20 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    passes in every frame, the tile raster never; phase 15's overflow gates;
    the image finite in [0, 1] up to 1e-6; one frame with the kernels and
    with the plain versions from a shared state and carry (identical), and
-   its PSNR to the tile route's frame printed.
+   its PSNR to the tile route's frame printed;
+19. the app path at config 5's width (`app_phase`): an `AssetManager` imports a
+   tone `.wav` and a counting script (sidecar UUIDs below 2^63); 16 falling
+   boxes get a looping, spatialised `AudioSourceComponent` and the camera a
+   listener; the scene is saved with `save_to_file` and loaded with
+   `load_from_file(asset_manager=...)` (every index and component array kept
+   exactly); `App.run` with the asset manager, a `ScriptManager`, an
+   `AudioEngine` and an `Input` drives the runner on the App's engine for 12
+   frames, each presented to a `Window` and marked on a `Profiler`. The loaded
+   scene's first frame is bit-equal to the built scene's; all 16 sources bound
+   and playing; 800 samples a frame; the hook's positions equal the state's;
+   the script's counters; the profiler's frames and zones; the presented frame;
+   a snapshot replicated through `delta`/`apply_delta` with equal hashes; the
+   compact kernel, tile raster, HiZ and depth raster launched, no other.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -1115,6 +1130,272 @@ def psnr_u8(img, golden) -> float:
     q = torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8).double()
     mse = (q - torch.as_tensor(golden, device=img.device).double()).pow(2).mean().item()
     return 99.0 if mse == 0 else 20.0 * math.log10(255.0) - 10.0 * math.log10(mse)
+
+
+APP_FRAMES, APP_WARMUP = 12, 2  # phase 19: App.run frames, the first APP_WARMUP untimed
+APP_SOURCE_BOXES = tuple(range(0, 255, 16))  # phase 19: the 16 falling boxes that carry a source
+APP_SNAPSHOT_FRAME = 6  # phase 19: the frame whose snapshot the incremental delta starts from
+APP_HOOK_REPS = 10  # phase 19: calls of the audio hook and of `present` timed alone
+APP_SCRIPT = '''
+def on_scene_start(scene, env):
+    env["start"] = env.get("start", 0) + 1
+
+def on_scene_update(scene, dt, env):
+    env["update"] = env.get("update", 0) + 1
+
+def on_fixed_update(scene, dt, env):
+    env["fixed"] = env.get("fixed", 0) + 1
+'''
+
+
+def app_phase(dev, card: str, every_mod) -> dict:
+    """Phase 19, the app path: the config-5 scene with audio and a script saved
+    to JSON, loaded through an `AssetManager`, and driven by `App.run` with the
+    asset manager, a `ScriptManager`, an `AudioEngine` and an `Input` as its
+    modules; the frame callback steps the runner, presents to a `Window` and
+    marks a `Profiler` frame. Returns the kernels' launch counts in the App's
+    frames."""
+    import json as _json
+    import tempfile
+    import wave
+    from pathlib import Path
+
+    import numpy as np
+
+    from oxylus_tpu_torch.assets.manager import AssetManager
+    from oxylus_tpu_torch.audio.engine import SAMPLE_RATE, AudioClip, AudioEngine
+    from oxylus_tpu_torch.core import uuid as uuidlib
+    from oxylus_tpu_torch.core.app import App
+    from oxylus_tpu_torch.core.input import Input, KeyCode
+    from oxylus_tpu_torch.core.window import Window, frame_to_uint8
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import raster3d
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.scene import serialize, snapshot
+    from oxylus_tpu_torch.scene.scene import Scene
+    from oxylus_tpu_torch.scripting.system import ScriptManager
+    from oxylus_tpu_torch.utils.profiler import PROFILER, Profiler
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="ox_app_")
+    root = Path(tmp.name)
+    rng = np.random.default_rng(19)
+    # .oxasset sidecars with both UUID words below 2^63: `Scene.set_field` stores
+    # larger words through float64 and would unbind the sources (ROADMAP C)
+    small_uuid = lambda: uuidlib.u64_pair_to_uuid(int(rng.integers(1, 2**62)), int(rng.integers(1, 2**62)))
+    clip_uuid, script_uuid = small_uuid(), small_uuid()
+    tone = (AudioClip.tone(440.0, seconds=4.0).samples[:, 0] * 32767).astype(np.int16)
+    with wave.open(str(root / "tone.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes(tone.tobytes())
+    (root / "counter.py").write_text(APP_SCRIPT)
+    for name, u, kind in (("tone.wav", clip_uuid, "Audio"), ("counter.py", script_uuid, "Script")):
+        AssetManager.meta_path(root / name).write_text(_json.dumps({"uuid": u, "type": kind}))
+    assets = AssetManager()
+    check(assets.import_asset(root / "tone.wav") == clip_uuid, "19: the clip did not import under its sidecar UUID")
+    check(assets.import_asset(root / "counter.py") == script_uuid, "19: the script did not import under its UUID")
+
+    def build():
+        scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+        scene.entity("camera").add("AudioListenerComponent", active=True).add_tag("Networked")
+        for k in APP_SOURCE_BOXES:
+            scene.entity(f"box_{k}").add("AudioSourceComponent", audio_source=clip_uuid, looping=True,
+                                         spatialization=True, play_on_awake=True, min_distance=1.0)
+        for k in range(255):
+            scene.entity(f"box_{k}").add_tag("Networked")
+        scene.script_uuids.append(script_uuid)
+        return scene, runner_kw
+
+    # ---- the round trip: every index and every component array kept exactly
+    built, runner_kw = build()
+    t0 = time.perf_counter()
+    serialize.save_to_file(built, root / "scene.json")
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = serialize.load_from_file(root / "scene.json", spec=built.spec, asset_manager=assets, device=dev)
+    t_load = time.perf_counter() - t0
+    # SSR is not part of the reference's RendererCVar schema, so the JSON does not carry it
+    check(not loaded.renderer_config.ssr_enable, "19: the JSON carried ssr_enable")
+    loaded.renderer_config.ssr_enable = built.renderer_config.ssr_enable
+    check(loaded.renderer_config == built.renderer_config, "19: the renderer config changed on the round trip")
+    check(np.array_equal(loaded._alive, built._alive) and np.array_equal(loaded._parent, built._parent)
+          and loaded._names == built._names and loaded._tags == built._tags, "19: an entity moved on the round trip")
+    n_arrays = 0
+    for comp, fields in built._comp_data.items():
+        check(np.array_equal(loaded._comp_mask[comp], built._comp_mask[comp]), f"19: {comp}'s mask changed")
+        for k, arr in fields.items():
+            got = loaded._comp_data[comp][k]
+            check(got.dtype == arr.dtype and np.array_equal(got, arr), f"19: {comp}.{k} changed on the round trip")
+            n_arrays += 1
+    check(all(assets.get_asset(u).is_loaded for u in (clip_uuid, script_uuid)), "19: a requested asset is not loaded")
+    print(f"[19] config-5 scene with {len(APP_SOURCE_BOXES)} sources and a script: saved "
+          f"({(root / 'scene.json').stat().st_size} bytes) in {t_save:.3f} s, loaded in {t_load:.3f} s; "
+          f"{int(built._alive.sum())} entities kept their indices, {n_arrays} component arrays equal", flush=True)
+
+    # ---- the first frame of the scene built directly, for the bit comparison
+    t0 = time.perf_counter()
+    direct = SceneRunner(built, **runner_kw)
+    first_direct = direct.step().clone()
+    torch.cuda.synchronize()
+    del direct, built
+    torch.cuda.empty_cache()
+    t_direct = time.perf_counter() - t0
+
+    # ---- the App: modules, the scene host and the frame callback
+    scripts, engine, inputs = ScriptManager(), AudioEngine(), Input()
+
+    class SceneHost:
+        """Compiles the scene's script through the ScriptManager and builds the
+        runner on the App's AudioEngine and AssetManager, at the App's init."""
+
+        module_dependencies = (AssetManager, ScriptManager, AudioEngine)
+
+        def init(self, app):
+            source = assets.load_asset(script_uuid)
+            scripts.load_script(script_uuid, source, name="counter")
+            loaded.lua_systems[script_uuid] = scripts.create_system(script_uuid, loaded)
+            self.runner = SceneRunner(loaded, **runner_kw, audio_engine=app.registry.get(AudioEngine),
+                                      asset_manager=app.registry.get(AssetManager))
+
+    host = SceneHost()
+    app = App().with_name("chip_smoke app").with_modules(assets, scripts, engine, inputs, host)
+    window, app_prof = Window(WIDTH, HEIGHT), Profiler()
+    seen = {"samples": [], "blocks": [], "marks": [], "first_equal": None, "bound": None, "loaded": None}
+    snapshots = snapshot.SceneSnapshotBuilder()
+    spare = Window(WIDTH, HEIGHT)  # `present` timed alone, beside the App's window
+
+    def frame(app_, ts):
+        runner = host.runner
+        inputs.inject_key_down(KeyCode.SPACE)  # pressed in the first frame, then held
+        image = runner.step(DT)
+        n = runner.frame_index
+        seen.setdefault("keys", []).append((inputs.get_key_pressed(KeyCode.SPACE), inputs.get_key_held(KeyCode.SPACE)))
+        if n == 1:
+            seen["first_equal"] = torch.equal(image.view(torch.int32), first_direct.view(torch.int32))
+        with app_prof.zone("present"):
+            window.present(image)
+        block = runner.last_audio_block
+        seen["samples"].append(0 if block is None else block.shape[0])
+        seen["blocks"].append(block)
+        if n == APP_SNAPSHOT_FRAME:
+            snap6 = snapshots.take_snapshot(runner.sync_to_host())
+            seen["full"] = snapshots.delta(snap6)
+            snapshots.ack(snap6.sequence)
+        if n == APP_FRAMES:
+            srcs = runner._audio_sources
+            seen["bound"] = (len(srcs), sum(s.playing for s in srcs.values()))
+            seen["loaded"] = [assets.get_asset(u).is_loaded for u in (clip_uuid, script_uuid)]
+            seen["audio_zone"] = (PROFILER.zones["audio_frame"].calls, PROFILER.zones["audio_frame"].mean_ms)
+            # the hook and `present` alone on an idle card (after the counts above)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(APP_HOOK_REPS):
+                runner._audio_frame(DT)
+            seen["hook_alone"] = (time.perf_counter() - t) / APP_HOOK_REPS * 1e3
+            t = time.perf_counter()
+            for _ in range(APP_HOOK_REPS):
+                spare.present(image)
+            seen["present_alone"] = (time.perf_counter() - t) / APP_HOOK_REPS * 1e3
+        inputs.reset_pressed()
+        app_prof.frame_mark()
+        seen["marks"].append(time.perf_counter())
+        return True
+
+    PROFILER.zones.clear()
+    PROFILER.frame_count = 0
+    PROFILER.frame_times.clear()
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    decode_calls: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with capture(raster3d, "rasterize_reference", decode_calls):
+        app.run(frames=APP_FRAMES, frame_callback=frame)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    app_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    runner = host.runner
+    marks = seen["marks"]
+    fps = (APP_FRAMES - APP_WARMUP) / (marks[-1] - marks[APP_WARMUP - 1])
+
+    # ---- the checks
+    check(seen["first_equal"] is True, "19: the loaded scene's first frame differs from the built scene's")
+    check(seen["loaded"] == [True, True], f"19: assets loaded {seen['loaded']}")
+    check(seen["bound"] == (len(APP_SOURCE_BOXES),) * 2, f"19: sources bound and playing {seen['bound']}")
+    check(seen["keys"] == [(True, True)] + [(False, True)] * (APP_FRAMES - 1), f"19: the key's edges {seen['keys']}")
+    want = round(APP_FRAMES * SAMPLE_RATE / 60)
+    total = sum(seen["samples"])
+    check(all(abs(s - SAMPLE_RATE / 60) <= 1 for s in seen["samples"]) and abs(total - want) <= 1,
+          f"19: the mixer produced {seen['samples']} samples, {total} against {want}")
+    mix = np.concatenate(seen["blocks"])
+    energy = (float(np.mean(mix[:, 0] ** 2)), float(np.mean(mix[:, 1] ** 2)))
+    check(all(math.isfinite(e) and e > 0 for e in energy), f"19: channel energies {energy}")
+    world = runner.state.world[:, :3, 3].cpu().numpy()
+    src_err = max(float(np.abs(src.position - world[i]).max()) for i, src in runner._audio_sources.items())
+    cam = loaded.entity("camera").index
+    lst_err = float(np.abs(engine.listeners[0].position - world[cam]).max())
+    check(src_err == 0.0 and lst_err == 0.0, f"19: hook positions differ from the state by {src_err}, {lst_err}")
+    env = loaded.lua_systems[script_uuid].env
+    h, acc, ticks = loaded.spec.physics_interval, 0.0, 0
+    for _ in range(APP_FRAMES):  # the runner's 60 Hz script accumulator, replayed
+        acc += DT
+        n = 0
+        while acc >= h and n < loaded.spec.max_substeps:
+            acc -= h
+            n += 1
+        ticks += n
+        acc = min(acc, h)
+    check(env == {"start": 1, "update": APP_FRAMES, "fixed": ticks}, f"19: script counters {env}, {ticks} ticks")
+    fused, (audio_calls, audio_ms) = PROFILER.zones["frame3d_fused"], seen["audio_zone"]
+    check(PROFILER.frame_count == APP_FRAMES and fused.calls == APP_FRAMES and audio_calls == APP_FRAMES
+          and app_prof.frame_count == APP_FRAMES, f"19: profiler frames {PROFILER.frame_count}, zones "
+          f"{ {k: z.calls for k, z in PROFILER.zones.items()} }, app frames {app_prof.frame_count}")
+    check(window.presented_frames == APP_FRAMES, f"19: {window.presented_frames} frames presented")
+    check(np.array_equal(window.latest_frame, frame_to_uint8(runner.last_frame).cpu().numpy()),
+          "19: the presented frame is not the runner's last image")
+    image = runner.last_frame
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(image).all()),
+          "19: the image is not finite or of the wrong shape")
+    for mod in every_mod:
+        n = app_launches[mod.__name__]
+        if mod.__name__.rsplit(".", 1)[-1] in ("megakernel_compact", "raster3d", "hiz", "raster_depth"):
+            check(n > 0, f"19: the app path never launched {mod.__name__}")
+        else:
+            check(n == 0, f"19: the app path launched {mod.__name__} {n} times")
+    check(not decode_calls, "19: the app path ran the decode raster")
+
+    # ---- the snapshot: frame 6's full delta and the incremental one since, applied
+    # to a fresh port scene; its snapshot's hashes equal the synced scene's
+    snap = snapshots.take_snapshot(runner.sync_to_host())
+    inc = snapshots.delta(snap)
+    check(seen["full"].base_sequence == -1 and inc.base_sequence == 1 and len(inc.changed) > 0,
+          f"19: the deltas' bases {seen['full'].base_sequence}, {inc.base_sequence}, {len(inc.changed)} changed")
+    replica = Scene("replica", spec=loaded.spec, device=dev)
+    emap = snapshot.apply_delta(replica, inc, snapshot.apply_delta(replica, seen["full"]))
+    rep = snapshot.SceneSnapshotBuilder().take_snapshot(replica)
+    check({emap[i]: e.hashes for i, e in snap.entities.items()} == {i: e.hashes for i, e in rep.entities.items()}
+          and len(snap.entities) == 1 + 255, f"19: the replica's snapshot differs ({len(snap.entities)} entities)")
+    hook_alone, present_alone = seen["hook_alone"], seen["present_alone"]
+    tmp.cleanup()
+    seconds = time.perf_counter() - t_phase
+    print(f"[19] App.run: {APP_FRAMES} frames at {WIDTH}x{HEIGHT}, {fps:.3f} frames/s untraced after "
+          f"{APP_WARMUP} warm-up ({card}); run {t_run:.3f} s, direct runner and its first frame {t_direct:.3f} s; "
+          f"first frame bit-equal to the built scene's; {seen['bound'][0]} of {len(APP_SOURCE_BOXES)} sources bound "
+          f"and playing; {total} samples (want {want}); channel energies {energy[0]:.6g}, {energy[1]:.6g}; hook "
+          f"positions equal to the state; script counters {env}; profiler {PROFILER.frame_count} frames, "
+          f"frame3d_fused {fused.calls} ({fused.mean_ms:.3f} ms host a frame); audio hook {audio_ms:.3f} ms "
+          f"host a frame in the loop (it waits for the frame's queued work), {hook_alone:.3f} ms alone; present "
+          f"{app_prof.zones['present'].mean_ms:.3f} ms in the loop, {present_alone:.3f} ms alone; peak memory "
+          f"allocated {peak / 2**30:.3f} GiB; kernel launches {app_launches}; snapshot of "
+          f"{len(snap.entities)} entities, incremental delta {len(inc.changed)} changed, replica hashes equal; "
+          f"phase {seconds:.1f} s", flush=True)
+    del runner, host, app, loaded, replica
+    torch.cuda.empty_cache()
+    return app_launches
 
 
 def main() -> int:
@@ -2572,11 +2853,14 @@ def main() -> int:
     del runner, scene, runner_kw
     torch.cuda.empty_cache()
 
+    # ---- 19. the app path: JSON scene, assets, script, audio and App.run at config 5 --------
+    app_launches = app_phase(dev, card, every_mod)
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
-        # path's timed frames) and 18 (the atrium's group-route frames)
+        # path's timed frames), 18 (the atrium's group-route frames) and 19 (the App's frames)
         paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
-                 "atrium_group_18": atrium_group_launches[mod.__name__]}
+                 "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}

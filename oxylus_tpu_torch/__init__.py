@@ -12,8 +12,11 @@ HiZ and depth raster kernels and the particle composite; the 2D frame
 (`render/renderer2d.py`, `ops/raster2d.py`) with the sprite blend kernel
 (`ops/blend2d.py`); and the runner's separate-stage physics: the dense
 rigid-body kernel (`physics/megakernel.py`), the plain substep
-(`physics/step.py`) and contact events (`physics/events.py`). CUDA sources
-live in `*/csrc/`.
+(`physics/step.py`) and contact events (`physics/events.py`); and the app path:
+JSON scenes and snapshots, scripts, the asset manager and packs, audio in the
+frame loop and the `App` runtime (`core/`, `scene/serialize.py`,
+`scene/snapshot.py`, `scripting/`, `assets/manager.py`, `assets/pack.py`,
+`audio/`). CUDA sources live in `*/csrc/`.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,11 @@
-"""Per-scene renderer settings (counterpart of `oxylus_tpu/core/config.py`).
+"""Configuration: per-scene renderer settings, the app's context settings and the
+CVar view (a copy of `oxylus_tpu/core/config.py`).
 
 `RendererConfig` is copied field for field, with the same JSON layout, so a
-scene's `config` object reads the same in both packages. The context config and
-the CVar registry are not needed by the port yet.
+scene's `config` object reads the same in both packages. `ContextConfig` is the
+app's global settings (the reference's `ContextCVar`), and `CVarSystem` a flat
+string-keyed live view over config dataclasses for console and script access
+(the reference's hashed CVar registry, `Utils/CVars.hpp:27-143`).
 """
 
 from __future__ import annotations
@@ -136,3 +139,35 @@ class RendererConfig:
             cfg.contact_shadows_thickness = float(cs.get("thickness", cfg.contact_shadows_thickness))
             cfg.contact_shadows_length = float(cs.get("length", cfg.contact_shadows_length))
         return cfg
+
+
+@dataclasses.dataclass
+class ContextConfig:
+    """Global app config (reference: `Render/ContextCVar.hpp`, persisted toml)."""
+
+    vsync: bool = True
+    frame_limit: float = 0.0  # 0 = unlimited
+
+
+class CVarSystem:
+    """Flat string-keyed live view over config dataclasses — the console/scripting
+    surface of the reference's hashed CVar registry (`Utils/CVars.hpp:27-143`)."""
+
+    def __init__(self) -> None:
+        self._bindings: dict[str, tuple[Any, str]] = {}
+
+    def bind_dataclass(self, prefix: str, obj: Any) -> None:
+        for f in dataclasses.fields(obj):
+            self._bindings[f"{prefix}.{f.name}"] = (obj, f.name)
+
+    def names(self) -> list[str]:
+        return sorted(self._bindings)
+
+    def get(self, name: str) -> Any:
+        obj, attr = self._bindings[name]
+        return getattr(obj, attr)
+
+    def set(self, name: str, value: Any) -> None:
+        obj, attr = self._bindings[name]
+        current = getattr(obj, attr)
+        setattr(obj, attr, type(current)(value))

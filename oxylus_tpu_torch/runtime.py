@@ -23,7 +23,15 @@ Routes as the JAX runner does:
 Which implementation a kernel runs is picked inside its wrapper by the tensors'
 device: the CUDA kernel on a card, the plain version on the CPU. The runner
 runs on the card unless `device="cpu"` is given; the scene must live on the
-same device. Per-frame script hooks are carried over; audio raises.
+same device. Per-frame script hooks are carried over. Audio: scenes with an
+`AudioSourceComponent` or `AudioListenerComponent` get an `AudioEngine` (or use the
+one passed in), and after every frame route `_audio_frame` reads the audio
+entities' world translations from the device in one gather and one host copy,
+syncs the engine's sources and listeners (clips resolved by UUID through
+`asset_manager`, or bound with `attach_audio_clip`) and mixes the frame's samples
+on the host. Each step marks a frame of `utils.profiler.PROFILER` and runs in its
+zones: `frame3d_fused` (the fused route), `frame_step` (the separate-stage
+physics), `render_2d` and `audio_frame`.
 `atmosphere` (an `AtmosphereParams`) and `enable_shadows` go to every
 rendered frame, as in the JAX runner, and so do the texturing gates, taken
 once from the bound materials' flag bits: the texture kinds some material
@@ -47,6 +55,7 @@ from .assets.material import (
     FLAG_HAS_METALLIC_ROUGHNESS,
     FLAG_HAS_NORMAL,
 )
+from .audio.engine import SAMPLE_RATE, AudioEngine, sync_sources_from_scene
 from .core import uuid as uuidlib
 from .core.config import RendererConfig
 from .device import resolve_device
@@ -62,10 +71,7 @@ from .scene.frame import frame_step
 from .scene.particles import particle_update
 from .scene.scene import Scene
 from .scene.state import propagate_transforms
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to oxylus_tpu_torch yet")
+from .utils.profiler import PROFILER
 
 
 class SceneRunner:
@@ -86,6 +92,7 @@ class SceneRunner:
         atmosphere=None,
         enable_shadows: bool = False,
         audio_engine=None,
+        asset_manager=None,
         material_slots: dict | None = None,
         binning_stats: bool = False,
         device=None,
@@ -95,12 +102,6 @@ class SceneRunner:
             raise ValueError(f"the scene lives on {scene.device}, the runner was asked for {dev}")
         if render_mode not in ("none", "2d", "3d"):
             raise ValueError(f"render_mode={render_mode!r}: 'none', '2d' or '3d'")
-        has_audio = bool(
-            (scene._alive & scene._comp_mask["AudioSourceComponent"]).any()
-            or (scene._alive & scene._comp_mask["AudioListenerComponent"]).any()
-        )
-        if audio_engine is not None or has_audio:
-            raise _not_ported("audio")
         self.scene = scene
         self.device = dev
         self.width = width
@@ -116,6 +117,26 @@ class SceneRunner:
         self.config: RendererConfig = scene.renderer_config
         self.atmosphere = atmosphere
         self.enable_shadows = enable_shadows
+
+        # audio: the reference runs audio_listener_update/audio_source_update
+        # every frame inside world.progress (`Scene.cpp:681-716`); the runner
+        # drives the engine per frame when the scene carries audio components.
+        # Scenes without audio pay nothing (the engine stays None).
+        self.asset_manager = asset_manager
+        self.audio_engine = audio_engine
+        self._audio_sources: dict[int, Any] = {}
+        self._audio_accum = 0.0
+        self._audio_entity_idx: tuple[np.ndarray, torch.Tensor] | None = None  # host and device indices
+        self.last_audio_block = None
+        if self.audio_engine is None:
+            has_audio = bool(
+                (scene._alive & scene._comp_mask["AudioSourceComponent"]).any()
+                or (scene._alive & scene._comp_mask["AudioListenerComponent"]).any()
+            )
+            if has_audio:
+                self.audio_engine = AudioEngine()
+                self.audio_engine.init()
+
         if not scene.running:
             scene.runtime_start()
         self.state = scene.to_device_state()
@@ -242,6 +263,7 @@ class SceneRunner:
             old_n = int(self.state.alive.shape[0])
             self.state = scene.merge_host_edits(self.state)
             self.invalidate_camera()
+            self._audio_entity_idx = None  # audio entities may have changed
             new_n = int(self.state.alive.shape[0])
             if new_n != old_n:
                 # the entity capacity grew mid-run: re-pad the per-entity
@@ -271,24 +293,29 @@ class SceneRunner:
         image = None
         if render and self.render_mode == "3d" and self.gscene is not None and self._resolve_camera_idx() >= 0:
             image = self._step_render3d_fused(dt)
-        elif self.use_megakernel:
-            self._step_dense(dt)
         else:
-            self.state, self.ps = frame_step(
-                self.state, self.ps, self.physics_params, dt, self.scene.spec, has_bodies=self._bodies()
-            )
+            with PROFILER.zone("frame_step"):
+                if self.use_megakernel:
+                    self._step_dense(dt)
+                else:
+                    self.state, self.ps = frame_step(
+                        self.state, self.ps, self.physics_params, dt, self.scene.spec, has_bodies=self._bodies()
+                    )
         self._post_step_events()
+        self._audio_frame(dt)
         self.frame_index += 1
         if render and self.render_mode == "2d":
             camera = self.active_camera()
             if camera is not None:
                 self.frame_stats = {}
-                image, _vis = render_2d_with_particles(
-                    self.state, camera, self.bindings, width=self.width, height=self.height,
-                    stats=self.frame_stats if self.binning_stats else None,
-                )
+                with PROFILER.zone("render_2d"):
+                    image, _vis = render_2d_with_particles(
+                        self.state, camera, self.bindings, width=self.width, height=self.height,
+                        stats=self.frame_stats if self.binning_stats else None,
+                    )
         self._script_frame_end(image)
         self.last_frame = image
+        PROFILER.frame_mark()
         return image
 
     def _step_dense(self, dt: float) -> None:
@@ -316,6 +343,60 @@ class SceneRunner:
         self.state = dataclasses.replace(
             state, previous_world=state.world, world=new_world, time=state.time + dt, frame=state.frame + 1
         )
+
+    # ------------------------------------------------------------------ audio
+    def attach_audio_clip(self, entity_index: int, clip, play: bool = True):
+        """Bind an in-memory AudioClip to an AudioSourceComponent entity (the
+        asset-manager-less path: scenes loaded from JSON resolve clips by UUID
+        via `asset_manager` instead)."""
+        if self.audio_engine is None:
+            self.audio_engine = AudioEngine()
+            self.audio_engine.init()
+        src = self.audio_engine.create_source(clip)
+        self._audio_sources[entity_index] = src
+        if play:
+            src.play()
+        return src
+
+    def _audio_frame(self, dt: float) -> None:
+        """Per-frame audio (`oxylus_tpu/runtime.py:447-489`): the world
+        translations of the audio entities from the device state (one gather
+        and one host copy, the index tensor cached on the device), pushed into
+        the engine via `sync_sources_from_scene`, velocities derived for
+        doppler, and the mixer advanced by the frame's worth of samples.
+        Mirrors the reference's PreUpdate audio systems (`Scene.cpp:681-716`)."""
+        if self.audio_engine is None:
+            return
+        with PROFILER.zone("audio_frame"):
+            scene = self.scene
+            if self._audio_entity_idx is None:
+                m = scene._alive & (
+                    scene._comp_mask["AudioSourceComponent"] | scene._comp_mask["AudioListenerComponent"]
+                )
+                host_idx = np.nonzero(m)[0]
+                self._audio_entity_idx = (host_idx, torch.as_tensor(host_idx, device=self.device))
+            host_idx, dev_idx = self._audio_entity_idx
+            if len(host_idx):
+                # world-space positions of just the audio entities (the
+                # translation column: matrices are column-translation)
+                pos = self.state.world[dev_idx, :3, 3].cpu().numpy()
+                scene._comp_data["TransformComponent"]["position"][host_idx] = pos
+            old_src_pos = {i: np.array(s.position) for i, s in self._audio_sources.items()}
+            old_lst_pos = [np.array(l.position) for l in self.audio_engine.listeners]
+            sync_sources_from_scene(self.audio_engine, scene, self._audio_sources, self.asset_manager)
+            if dt > 0:
+                for i, src in self._audio_sources.items():
+                    prev = old_src_pos.get(i)
+                    if prev is not None:
+                        src.velocity = (np.asarray(src.position) - prev) / dt
+                for j, lst in enumerate(self.audio_engine.listeners):
+                    if j < len(old_lst_pos):
+                        lst.velocity = (np.asarray(lst.position) - old_lst_pos[j]) / dt
+            self._audio_accum += dt * SAMPLE_RATE
+            frames = int(self._audio_accum)
+            self._audio_accum -= frames
+            if frames > 0:
+                self.last_audio_block = self.audio_engine.render_block(frames)
 
     def _post_step_events(self) -> None:
         """Contact and activation script callbacks off the post-step physics
@@ -360,17 +441,19 @@ class SceneRunner:
         scenes, `physics_substep` otherwise."""
         has_bodies = self._bodies()
         physics_mega = self.use_megakernel and has_bodies and self._fused_mega_eligible()
-        self.state, self.ps = frame_step(
-            self.state, self.ps, self.physics_params, dt, self.scene.spec,
-            has_bodies=has_bodies, physics_mega=physics_mega,
-        )
-        camera = camera_from_state(self.state, self._camera_idx, self.width / self.height)
-        ctx = self.renderer3d.render(
-            self.state, self.gscene, camera, self.bindings.materials, self.bindings.atlas, self.config,
-            prev=self.carry, atmosphere=self.atmosphere, enable_shadows=self.enable_shadows,
-            textured=self._textured, texture_features=self._texture_features, particles=self._has_particles,
-            alpha_masked=self._has_alpha_mask, static_lights=self._static_lights, binning_stats=self.binning_stats,
-        )
+        with PROFILER.zone("frame3d_fused"):
+            self.state, self.ps = frame_step(
+                self.state, self.ps, self.physics_params, dt, self.scene.spec,
+                has_bodies=has_bodies, physics_mega=physics_mega,
+            )
+            camera = camera_from_state(self.state, self._camera_idx, self.width / self.height)
+            ctx = self.renderer3d.render(
+                self.state, self.gscene, camera, self.bindings.materials, self.bindings.atlas, self.config,
+                prev=self.carry, atmosphere=self.atmosphere, enable_shadows=self.enable_shadows,
+                textured=self._textured, texture_features=self._texture_features, particles=self._has_particles,
+                alpha_masked=self._has_alpha_mask, static_lights=self._static_lights,
+                binning_stats=self.binning_stats,
+            )
         self.carry = ctx["carry"]
         self.frame_stats = {k: ctx[k] for k in ("bin_overflow", "bin_pairs", "expand_overflow") if k in ctx}
         return ctx["final"]

@@ -9,8 +9,8 @@ runs (`runtime_start` creates physics bodies from collider components —
 device boundary (`to_device_state`, `sync_from_device`, `merge_host_edits`,
 `apply_pending_body_ops`) speaks torch. The device is chosen at construction:
 the card unless `device="cpu"` is given, resolved strictly (no CPU fallback).
-
-Not carried over: `copy()` (JSON round trip) — the serializer is a later slice.
+`copy()` clones through the JSON serializer (`scene/serialize.py`), on the same
+device.
 """
 
 from __future__ import annotations
@@ -427,7 +427,9 @@ class Scene:
 
     # ------------------------------------------------------------------ device mirror
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        # always a copy: on the CPU `.to` alone would share the host mirror's
+        # memory, and a host edit would reach the state before a merge
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, copy=True)
 
     def to_device_state(self) -> SceneState:
         """Build (or fetch cached) the SceneState on the scene's device."""
@@ -623,3 +625,12 @@ class Scene:
             system.on_scene_stop(self)
         self.physics_state = None
         self.running = False
+
+    def copy(self) -> "Scene":
+        """Clone via JSON round-trip, exactly like the reference (`Scene.cpp:2095-2108`)."""
+        from .serialize import scene_from_json, scene_to_json
+
+        data = scene_to_json(self)
+        new_scene = scene_from_json(data, spec=self.spec, device=self.device)
+        new_scene.scene_name = f"{self.scene_name}_copy"
+        return new_scene

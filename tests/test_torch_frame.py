@@ -229,11 +229,11 @@ def test_runner_routes_frame_state_matches_jax(runner_pair):
 
 
 def test_runner_refuses_unported_routes():
-    """What the port does not run yet raises: audio; a runner on another
-    device than its scene is refused. The 2D renderer, the 3D particle
-    composite, and textured and alpha-masked materials on both raster routes
-    are taken now: the runner derives its texturing gates from the flag bits,
-    and the group route renders them."""
+    """A runner on another device than its scene is refused. The 2D renderer,
+    the 3D particle composite, textured and alpha-masked materials on both
+    raster routes, and audio are taken now: the runner derives its texturing
+    gates from the flag bits, the group route renders them, and a scene with an
+    audio component gets an engine that mixes a block each step."""
     s = _pile_scene(TScene, tstate.SceneSpec)
     assert SceneRunner(s, render_mode="2d", use_megakernel=True, device="cpu")._has_particles
     with pytest.raises(ValueError):  # the scene lives on the CPU
@@ -267,8 +267,10 @@ def test_runner_refuses_unported_routes():
     e = audio.create_entity("speaker")
     e.add("TransformComponent")
     e.add("AudioSourceComponent")
-    with pytest.raises(NotImplementedError, match="audio"):
-        SceneRunner(audio, device="cpu")
+    runner = SceneRunner(audio, device="cpu")
+    assert runner.audio_engine is not None
+    runner.step()
+    assert runner.last_audio_block.shape == (800, 2)
 
 
 def test_runner_takes_the_full_config5_frame():

@@ -66,6 +66,24 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.assets.procgen",
     "oxylus_tpu_torch.ops.sampling",
     "oxylus_tpu_torch.sponza",
+    "oxylus_tpu_torch.ops.decode3d",
+    "oxylus_tpu_torch.ops.raster_groups",
+    "oxylus_tpu_torch.time_redesigns",
+    "oxylus_tpu_torch.utils.slotmap",
+    "oxylus_tpu_torch.core.events",
+    "oxylus_tpu_torch.core.jobs",
+    "oxylus_tpu_torch.core.vfs",
+    "oxylus_tpu_torch.core.app",
+    "oxylus_tpu_torch.core.input",
+    "oxylus_tpu_torch.core.project",
+    "oxylus_tpu_torch.core.window",
+    "oxylus_tpu_torch.utils.profiler",
+    "oxylus_tpu_torch.scene.serialize",
+    "oxylus_tpu_torch.scene.snapshot",
+    "oxylus_tpu_torch.scripting.system",
+    "oxylus_tpu_torch.assets.manager",
+    "oxylus_tpu_torch.assets.pack",
+    "oxylus_tpu_torch.audio.engine",
 ]
 
 PROBE = f"""
