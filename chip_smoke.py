@@ -21,8 +21,10 @@ Sponza-class atrium of config 4 with its textured and alpha-masked materials
 (phase 16), and the decode path (`RenderSpec(use_pallas=False)`) on the
 golden scene (phase 17a) and the config-5 runner (phase 17b), and the app
 path (phase 19: the config-5 scene with sound and a script through JSON, the
-asset manager and `App.run`), with bodies and the atrium made from a fixed
-seed. Every
+asset manager and `App.run`), and the default module roster on that scene
+(phase 20: KTX2/DDS textures, the debug overlay, loopback replication, debug
+views, picking and the graded tonemap), with bodies and the atrium made from a
+fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -224,6 +226,27 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    the script's counters; the profiler's frames and zones; the presented frame;
    a snapshot replicated through `delta`/`apply_delta` with equal hashes; the
    compact kernel, tile raster, HiZ and depth raster launched, no other.
+20. the default module roster on phase 19's scene (`roster_phase`):
+   `App().with_modules(*default_modules())` in the JAX package's order and
+   names; its `AssetManager` imports a seeded BC7 KTX2, an RGBA8 KTX2 and a BGRA
+   DDS (sidecars typed `Texture`) and a material sampling them, and loads phase
+   19's JSON; the `Renderer` module's atlas and material table on the card equal
+   `TextureAtlas.build()` and `pack_materials` on the CPU bit for bit. `App.run`
+   drives the runner on the roster's `ScriptManager`, `AudioEngine` and
+   `Physics` for 8 frames with every launch count set to 0 just before; each
+   frame the `DebugRenderer` queues every body's AABB (12 lines each) and draws
+   them over the image on the card (frames 1 and 8 equal `rasterize_over` on
+   CPU copies, bit for bit), `sync_to_host` runs and the `NetworkManager`'s
+   server replicates to a `NetClient` with a replica scene on 127.0.0.1 (each
+   socket loop with a 2 s deadline); after the last frame the replica's
+   component arrays equal the server scene's host mirror for every networked
+   entity. The compact kernel, tile raster, HiZ and depth raster launched, no
+   other. Then each debug view mode (1, 2, 4–11, 13) rendered once equals
+   `apply_debug_view` on a CPU copy of its ctx; `pick_entity_3d` at 16 seeded
+   pixels equals the host decode through the slot tables, `cast_ray_bodies`
+   along `screen_ray` there gives the CPU's body and distance (within 1e-4
+   relative) and hits at least once; `apply_tonemap` with chromatic aberration
+   0.5, vignette 0.4 and grain 0.3 on the frame's HDR is within 1e-6 of the CPU.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -1148,13 +1171,15 @@ def on_fixed_update(scene, dt, env):
 '''
 
 
-def app_phase(dev, card: str, every_mod) -> dict:
+def app_phase(dev, card: str, every_mod) -> tuple[dict, dict]:
     """Phase 19, the app path: the config-5 scene with audio and a script saved
     to JSON, loaded through an `AssetManager`, and driven by `App.run` with the
     asset manager, a `ScriptManager`, an `AudioEngine` and an `Input` as its
     modules; the frame callback steps the runner, presents to a `Window` and
     marks a `Profiler` frame. Returns the kernels' launch counts in the App's
-    frames."""
+    frames, and what phase 20 loads again: the directory holding the scene's
+    JSON and its assets (to clean up), the scene spec and the runner's
+    arguments."""
     import json as _json
     import tempfile
     import wave
@@ -1380,7 +1405,6 @@ def app_phase(dev, card: str, every_mod) -> dict:
     check({emap[i]: e.hashes for i, e in snap.entities.items()} == {i: e.hashes for i, e in rep.entities.items()}
           and len(snap.entities) == 1 + 255, f"19: the replica's snapshot differs ({len(snap.entities)} entities)")
     hook_alone, present_alone = seen["hook_alone"], seen["present_alone"]
-    tmp.cleanup()
     seconds = time.perf_counter() - t_phase
     print(f"[19] App.run: {APP_FRAMES} frames at {WIDTH}x{HEIGHT}, {fps:.3f} frames/s untraced after "
           f"{APP_WARMUP} warm-up ({card}); run {t_run:.3f} s, direct runner and its first frame {t_direct:.3f} s; "
@@ -1393,9 +1417,444 @@ def app_phase(dev, card: str, every_mod) -> dict:
           f"allocated {peak / 2**30:.3f} GiB; kernel launches {app_launches}; snapshot of "
           f"{len(snap.entities)} entities, incremental delta {len(inc.changed)} changed, replica hashes equal; "
           f"phase {seconds:.1f} s", flush=True)
+    handoff = {"tmp": tmp, "root": root, "spec": loaded.spec, "runner_kw": runner_kw,
+               "clip_uuid": clip_uuid, "script_uuid": script_uuid}
     del runner, host, app, loaded, replica
     torch.cuda.empty_cache()
-    return app_launches
+    return app_launches, handoff
+
+
+ROSTER_FRAMES, ROSTER_WARMUP = 8, 2  # phase 20: App.run frames, the first ROSTER_WARMUP untimed
+# the JAX package's `default_modules()` in its order: each module's type name and MODULE_NAME
+ROSTER_NAMES = ("ScriptManager", "AssetManager", "AudioEngine", "Physics", "Input", "NetworkManager",
+                "Renderer", "DebugRenderer")
+ROSTER_VIEWS = (1, 2, 4, 5, 6, 7, 8, 9, 10, 11, 13)  # every debug view mode but 0 (none)
+ROSTER_PICKS, ROSTER_PICKS_ON_HITS = 16, 12  # seeded pixels picked, of them drawn from hit pixels
+# cast_ray_bodies' distance, card against CPU, relative to max(1 m, distance): the ray's inverse
+# view-projection (`torch.linalg.inv`) and the AABB einsums round differently on the two devices
+ROSTER_RAY_TOL = 1e-4
+ROSTER_POST_TOL = 1e-6  # apply_tonemap with aberration, vignette and grain, card against CPU
+ROSTER_FX = dict(chromatic_aberration=0.5, vignette=0.4, film_grain=0.3)
+NET_DEADLINE = 2.0  # s: each loopback socket loop of phase 20
+ROSTER_TIMING_REPS = 10  # calls of each debug view and of the graded tonemap timed by events
+
+
+def _ktx2_bytes(vk_format: int, blob: bytes, w: int, h: int) -> bytes:
+    """A single-level KTX2 container around `blob` (no supercompression)."""
+    import struct
+
+    from oxylus_tpu_torch.assets.texture import _KTX2_MAGIC
+
+    header = _KTX2_MAGIC + struct.pack("<9I", vk_format, 1, w, h, 0, 0, 1, 1, 0)
+    header += struct.pack("<4I2Q", 0, 0, 0, 0, 0, 0)
+    return header + struct.pack("<3Q", 104, len(blob), len(blob)) + blob
+
+
+def _dds_bytes(bgra) -> bytes:
+    """An uncompressed 32-bit DDS with B, G, R, A byte order (masks 0xFF0000, 0xFF00, 0xFF, 0xFF000000)."""
+    import struct
+
+    h, w = bgra.shape[:2]
+    header = struct.pack("<4s7I44x", b"DDS ", 124, 0x100F, h, w, w * 4, 0, 0)
+    header += struct.pack("<8I", 32, 0x41, 0, 32, 0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+    header += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    return header + bgra.tobytes()
+
+
+def roster_textures(root, rng, small_uuid) -> dict:
+    """Phase 20's assets from `rng`: a BC7 KTX2 (seeded blocks through all eight
+    modes), an uncompressed RGBA8 KTX2 (`write_ktx2`) and an uncompressed BGRA DDS,
+    each with a `Texture` sidecar, and a material sampling the three. Returns
+    {file name: UUID}."""
+    import json as _json
+
+    import numpy as np
+
+    from oxylus_tpu_torch.assets.manager import AssetManager
+    from oxylus_tpu_torch.assets.material import Material
+    from oxylus_tpu_torch.assets.texture import write_ktx2
+
+    blocks = rng.integers(0, 256, (16 * 16, 16), dtype=np.uint8)
+    for i in range(blocks.shape[0]):
+        m = i % 8
+        blocks[i, 0] = (blocks[i, 0] & ~np.uint8((1 << (m + 1)) - 1)) | np.uint8(1 << m)
+    (root / "bricks_bc7.ktx2").write_bytes(_ktx2_bytes(146, blocks.tobytes(), 64, 64))  # BC7 sRGB
+    write_ktx2(root / "normal_rgba8.ktx2", rng.integers(0, 256, (48, 80, 4), dtype=np.uint8), srgb=False)
+    (root / "glow_bgra.dds").write_bytes(_dds_bytes(rng.integers(0, 256, (40, 56, 4), dtype=np.uint8)))
+    uuids = {}
+    for name in ("bricks_bc7.ktx2", "normal_rgba8.ktx2", "glow_bgra.dds"):
+        uuids[name] = small_uuid()
+        AssetManager.meta_path(root / name).write_text(_json.dumps({"uuid": uuids[name], "type": "Texture"}))
+    mat = Material(albedo_color=(1.0, 0.9, 0.8, 1.0), roughness_factor=0.6, albedo_texture=uuids["bricks_bc7.ktx2"],
+                   normal_texture=uuids["normal_rgba8.ktx2"], emissive_texture=uuids["glow_bgra.dds"])
+    uuids["bricks.oxmat"] = small_uuid()
+    (root / "bricks.oxmat").write_text("{}")
+    AssetManager.meta_path(root / "bricks.oxmat").write_text(
+        _json.dumps({"uuid": uuids["bricks.oxmat"], "type": "Material", "material": mat.to_json()}))
+    return uuids
+
+
+def body_aabbs(ps):
+    """(dynamic, mins, maxs) of every active body's world AABB, as host arrays (one copy)."""
+    from oxylus_tpu_torch.physics.state import BODY_DYNAMIC
+    from oxylus_tpu_torch.physics.step import shape_local_halfbox
+    from oxylus_tpu_torch.utils import math3d
+
+    rot = math3d.quat_to_mat3(ps.quat)
+    center = ps.pos + torch.einsum("bij,bj->bi", rot, ps.offset)
+    half = torch.einsum("bij,bj->bi", torch.abs(rot), shape_local_halfbox(ps))
+    dyn = (ps.body_type == BODY_DYNAMIC).to(torch.float32)[:, None]
+    box = torch.cat([dyn, center - half, center + half], 1)[ps.active].cpu().numpy()
+    return box[:, 0] > 0, box[:, 1:4], box[:, 4:7]
+
+
+def to_cpu(x):
+    """A dataclass of tensors (or a tensor) copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)
+                                     if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
+def debug_view_inputs(ctx, gscene) -> dict:
+    """The renderer ctx entries `apply_debug_view` reads, copied to the host."""
+    from types import SimpleNamespace
+
+    out = {"visbuffer": ctx["visbuffer"].cpu(), "vm_instance": ctx["vm_instance"].cpu(),
+           "vm_meshlet": ctx["vm_meshlet"].cpu(), "gscene": SimpleNamespace(inst_material=gscene.inst_material.cpu()),
+           "gbuffer": {k: v.cpu() for k, v in ctx["gbuffer"].items() if isinstance(v, torch.Tensor)},
+           "ao": None if ctx.get("ao") is None else ctx["ao"].cpu()}
+    if "slot_instance" in ctx:
+        out["slot_instance"], out["slot_group"] = ctx["slot_instance"].cpu(), ctx["slot_group"]
+    return out
+
+
+def render_ctx(runner, config) -> dict:
+    """The runner's renderer on its current state and carry under `config`, as
+    `SceneRunner._step_render3d_fused` calls it (the carry is left as it was)."""
+    return runner.renderer3d.render(
+        runner.state, runner.gscene, runner.active_camera(), runner.bindings.materials, runner.bindings.atlas,
+        config, prev=runner.carry, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
+        textured=runner._textured, texture_features=runner._texture_features, particles=runner._has_particles,
+        alpha_masked=runner._has_alpha_mask, static_lights=runner._static_lights, binning_stats=runner.binning_stats,
+    )
+
+
+def roster_phase(dev, card: str, every_mod, handoff: dict) -> dict:
+    """Phase 20, the default module roster: `App().with_modules(*default_modules())`
+    loads phase 19's JSON scene through the roster's `AssetManager`, with three
+    seeded textures (BC7 KTX2, RGBA8 KTX2, BGRA DDS) and a material, and drives
+    the runner on the roster's `AudioEngine` and `ScriptManager` for 8 frames:
+    each frame the `DebugRenderer` draws every body's AABB over the image, the
+    scene is synced to the host and the `NetworkManager`'s server replicates it
+    to a loopback client. Then every debug view, picking, ray casts and the
+    graded tonemap are held against the CPU. Returns the launch counts in the
+    App's frames."""
+    import json as _json
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from oxylus_tpu_torch.assets.manager import AssetManager, AssetType
+    from oxylus_tpu_torch.assets.material import FLAG_HAS_ALBEDO, FLAG_HAS_EMISSIVE, FLAG_HAS_NORMAL, pack_materials
+    from oxylus_tpu_torch.assets.texture import TextureAtlas
+    from oxylus_tpu_torch.audio.engine import AudioEngine
+    from oxylus_tpu_torch.core import uuid as uuidlib
+    from oxylus_tpu_torch.core.app import App
+    from oxylus_tpu_torch.core.modules import Physics, default_modules
+    from oxylus_tpu_torch.render.debugdraw import DebugRenderer
+    from oxylus_tpu_torch.render.debugviews import apply_debug_view
+    from oxylus_tpu_torch.render.picking import cast_ray_bodies, pick_entity_3d, screen_ray
+    from oxylus_tpu_torch.render.postfx import apply_tonemap
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.scene import components, serialize
+    from oxylus_tpu_torch.scene.scene import Scene
+    from oxylus_tpu_torch.scene.snapshot import NETWORKED_COMPONENTS
+    from oxylus_tpu_torch.scripting.system import ScriptManager
+
+    t_phase = time.perf_counter()
+    root, spec, runner_kw = handoff["root"], handoff["spec"], handoff["runner_kw"]
+    clip_uuid, script_uuid = handoff["clip_uuid"], handoff["script_uuid"]
+    rng = np.random.default_rng(20)
+    small_uuid = lambda: uuidlib.u64_pair_to_uuid(int(rng.integers(1, 2**62)), int(rng.integers(1, 2**62)))
+
+    # ---- the roster, in the JAX package's order
+    roster = default_modules()
+    names = [(type(m).__name__, m.MODULE_NAME) for m in roster]
+    check(names == [(n, n) for n in ROSTER_NAMES], f"20: the roster is {names}")
+    scripts, assets, engine, physics, inputs, net, renderer, debug = roster
+    check(renderer.device == dev, f"20: the Renderer module lives on {renderer.device}")
+
+    # ---- textures and a material through the roster's asset manager; phase 19's scene
+    uuids = roster_textures(root, rng, small_uuid)
+    for name, u in uuids.items():
+        check(assets.import_asset(root / name) == u, f"20: {name} did not import under its sidecar UUID")
+        check(assets.load_asset(u) is not None, f"20: {name} did not load")
+    for name, u in (("tone.wav", clip_uuid), ("counter.py", script_uuid)):
+        check(assets.import_asset(root / name) == u, f"20: {name} did not import under its UUID")
+    t0 = time.perf_counter()
+    scene = serialize.load_from_file(root / "scene.json", spec=spec, asset_manager=assets, device=dev)
+    scene.renderer_config.ssr_enable = True  # not in the JSON schema (phase 19)
+    t_load = time.perf_counter() - t0
+
+    class SceneHost:
+        """Compiles the scene's script through the roster's ScriptManager and builds
+        the runner on the roster's Physics params, AudioEngine and AssetManager."""
+
+        module_dependencies = (AssetManager, ScriptManager, AudioEngine, Physics)
+
+        def init(self, app):
+            scripts.load_script(script_uuid, assets.load_asset(script_uuid), name="counter")
+            scene.lua_systems[script_uuid] = scripts.create_system(script_uuid, scene)
+            self.runner = SceneRunner(scene, **runner_kw, physics_params=app.registry.get(Physics).params,
+                                      audio_engine=engine, asset_manager=assets)
+
+    host = SceneHost()
+    app = App().with_name("chip_smoke roster").with_modules(*roster, host)
+    check([type(m).__name__ for m in app.registry][:len(ROSTER_NAMES)] == list(ROSTER_NAMES),
+          "20: the App's registry changed the roster's order")
+
+    # ---- the loopback server and client, connected before the App runs
+    server = net.create_server()
+    replica = Scene("replica", spec=spec, device=dev)
+    client = net.create_client("127.0.0.1", server.port, name="chip_smoke")
+    client.replica_scene = replica
+
+    def pump(cond, what):
+        end = time.monotonic() + NET_DEADLINE
+        while not cond():
+            check(time.monotonic() < end, f"20: {what} within {NET_DEADLINE} s")
+            net.update()
+            time.sleep(0.0005)
+
+    pump(lambda: client.connected and len(server.peers) == 1, "no loopback handshake")
+    peer = next(iter(server.peers.values()))
+
+    seen = {"marks": [], "queue_ms": [], "overlay_ev": [], "sync_ms": [], "net_ms": [], "delta_bytes": [],
+            "overlays": []}
+    box_colors = np.array([[0.0, 1.0, 0.0], [1.0, 0.8, 0.0]], np.float32)
+
+    def frame(app_, ts):
+        runner = host.runner
+        if runner.frame_index == 0:  # the Renderer module synced in this frame's update (the App's deinit unloads)
+            seen["tables"] = (renderer.atlas_gpu.cpu(), to_cpu(renderer.materials_gpu), dict(renderer.material_slots),
+                              assets.loaded_of_type(AssetType.TEXTURE), assets.loaded_of_type(AssetType.MATERIAL))
+        image = runner.step(DT)
+        n = runner.frame_index
+        # every body's AABB over the final image
+        t = time.perf_counter()
+        debug.reset()
+        dynamic, lo, hi = body_aabbs(runner.ps)
+        for k in range(len(lo)):
+            debug.draw_aabb(lo[k], hi[k], box_colors[0 if dynamic[k] else 1])
+        seen["queue_ms"].append((time.perf_counter() - t) * 1e3)
+        vp = runner.active_camera().view_projection
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        overlay = debug.rasterize_over(image, vp)
+        ev[1].record()
+        seen["overlay_ev"].append(ev)
+        if n in (1, ROSTER_FRAMES):
+            c = debug._count
+            seen["overlays"].append((n, image.clone(), vp.clone(), debug._a[:c].copy(), debug._b[:c].copy(),
+                                     debug._color[:c].copy(), overlay))
+        # the host mirror, then a snapshot delta to every peer
+        t = time.perf_counter()
+        runner.sync_to_host()
+        t_sync = time.perf_counter()
+        sent = peer.bytes_sent
+        server.replicate(scene)
+        seen["sync_ms"].append((t_sync - t) * 1e3)
+        seen["net_ms"].append((time.perf_counter() - t) * 1e3)
+        seen["delta_bytes"].append(peer.bytes_sent - sent)
+        if n == ROSTER_FRAMES:
+            last = peer.snapshots._sequence
+            pump(lambda: peer.snapshots.last_acked == last, "the last delta was not acknowledged")
+            seen["lines"] = c
+            seen["bodies"] = (len(lo), int(dynamic.sum()))
+            seen["replica_checked"] = replica_equal()
+        seen["marks"].append(time.perf_counter())
+        return True
+
+    def replica_equal() -> int:
+        """Every networked entity's component arrays in the replica equal the
+        server scene's host mirror; returns the entities compared."""
+        emap = client.server.entity_map
+        tag = components.BY_NAME["Networked"].path
+        n = 0
+        for i in np.nonzero(scene._alive)[0]:
+            i = int(i)
+            if tag not in scene._tags[i]:
+                continue
+            check(i in emap, f"20: entity {i} never reached the replica")
+            d = emap[i]
+            for comp in NETWORKED_COMPONENTS:
+                check(bool(replica._comp_mask[comp][d]) == bool(scene._comp_mask[comp][i]), f"20: {comp} mask, entity {i}")
+                if scene._comp_mask[comp][i]:
+                    for f, arr in scene._comp_data[comp].items():
+                        if arr.dtype != object:
+                            check(np.array_equal(replica._comp_data[comp][f][d], arr[i]),
+                                  f"20: the replica's {comp}.{f} of entity {i} differs")
+            n += 1
+        return n
+
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    app.run(frames=ROSTER_FRAMES, frame_callback=frame)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    runner = host.runner
+    marks = seen["marks"]
+    fps = (ROSTER_FRAMES - ROSTER_WARMUP) / (marks[-1] - marks[ROSTER_WARMUP - 1])
+    check(len(marks) == ROSTER_FRAMES and not app.is_running, f"20: {len(marks)} frames ran")
+    check(renderer.atlas_gpu is None and not net.servers and not net.clients, "20: the roster's deinit did not run")
+
+    # ---- the Renderer module's tables against the host build
+    atlas_card, mats_card, slots_card, textures, materials = seen["tables"]
+    atlas = TextureAtlas(size=renderer.atlas_size)
+    for u, tex in textures:
+        atlas.add(u, tex)
+    pixels, rects = atlas.build()
+    want_mats = pack_materials([m for _, m in materials], rects, renderer.max_materials, device="cpu")
+    check(len(rects) == 3 and torch.equal(atlas_card, torch.from_numpy(pixels)) and bool(atlas_card.any()),
+          "20: the Renderer module's atlas differs from TextureAtlas.build()")
+    for f in dataclasses.fields(want_mats):
+        got = getattr(mats_card, f.name)
+        check(got.dtype == getattr(want_mats, f.name).dtype and torch.equal(got, getattr(want_mats, f.name)),
+              f"20: the Renderer module's material {f.name} differs from pack_materials")
+    flags = int(mats_card.flags[slots_card[uuids["bricks.oxmat"]]])
+    check(flags & FLAG_HAS_ALBEDO and flags & FLAG_HAS_NORMAL and flags & FLAG_HAS_EMISSIVE,
+          f"20: the material's texture flags {flags:#x}")
+
+    # ---- the overlay: the card's equal to rasterize_over on CPU copies of the same inputs
+    for n, image, vp, a, b, col, overlay in seen["overlays"]:
+        cpu = DebugRenderer()
+        cpu._a[:len(a)], cpu._b[:len(a)], cpu._color[:len(a)], cpu._count = a, b, col, len(a)
+        want = cpu.rasterize_over(image.cpu(), vp.cpu())
+        got = overlay.cpu()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)), f"20: frame {n}'s overlay differs from the CPU's")
+        drawn = int((got != image.cpu()).any(-1).sum())
+        check(drawn > 0, f"20: frame {n}'s overlay drew nothing")
+        seen.setdefault("drawn", []).append(drawn)
+    overlay_ms = [e[0].elapsed_time(e[1]) for e in seen["overlay_ev"]]
+    check(seen["replica_checked"] == 1 + 255, f"20: {seen['replica_checked']} replicated entities compared")
+    check(seen["delta_bytes"][-1] < seen["delta_bytes"][0], f"20: delta bytes {seen['delta_bytes']}")
+    for mod in every_mod:
+        n = launches[mod.__name__]
+        if mod.__name__.rsplit(".", 1)[-1] in ("megakernel_compact", "raster3d", "hiz", "raster_depth"):
+            check(n > 0, f"20: the roster's frames never launched {mod.__name__}")
+        else:
+            check(n == 0, f"20: the roster's frames launched {mod.__name__} {n} times")
+
+    # ---- every debug view, rendered once, against apply_debug_view on a CPU copy of its ctx
+    config = runner.config
+    view_ms, ctx1 = {}, None
+    for m in ROSTER_VIEWS:
+        ctx = render_ctx(runner, dataclasses.replace(config, debug_view=m))
+        want = apply_debug_view(m, debug_view_inputs(ctx, runner.gscene))
+        check(want is not None, f"20: debug view {m} gave no image")
+        check(torch.equal(ctx["final"].cpu().view(torch.int32), want.view(torch.int32)),
+              f"20: debug view {m} differs from apply_debug_view on the CPU")
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        for _ in range(ROSTER_TIMING_REPS):
+            apply_debug_view(m, ctx)
+        ev[1].record()
+        torch.cuda.synchronize()
+        view_ms[m] = ev[0].elapsed_time(ev[1]) / ROSTER_TIMING_REPS
+        if ctx1 is None:
+            ctx1 = ctx
+        else:
+            del ctx
+
+    # ---- picking at seeded pixels, and rays through them into the bodies, card against CPU
+    vid = ctx1["visbuffer"].cpu().numpy()
+    hits = np.argwhere(vid >= 0)
+    check(len(hits) >= ROSTER_PICKS_ON_HITS, "20: the frame hit too few pixels to pick from")
+    prng = np.random.default_rng(2020)
+    pts = [tuple(int(v) for v in hits[k][::-1]) for k in prng.choice(len(hits), ROSTER_PICKS_ON_HITS, replace=False)]
+    pts += [(int(prng.integers(0, WIDTH)), int(prng.integers(0, HEIGHT))) for _ in range(ROSTER_PICKS - len(pts))]
+    tab = ctx1.get("slot_instance")
+    tab_h = None if tab is None else tab.cpu().numpy()
+    grp = ctx1.get("slot_group", 64)
+    vm_inst_h, inst_ent_h = ctx1["vm_instance"].cpu().numpy(), runner.gscene.inst_entity.cpu().numpy()
+    cam = runner.active_camera()
+    cam_h = SimpleNamespace(view_projection=cam.view_projection.cpu())
+    ps_h = to_cpu(runner.ps)
+    picked, ray_hits, ray_err = [], 0, 0.0
+    for x, y in pts:
+        got = int(pick_entity_3d(ctx1["visbuffer"], ctx1["vm_instance"], runner.gscene, x, y,
+                                 slot_instance=tab, slot_group=grp))
+        pid = int(vid[y, x])
+        if pid < 0:
+            want = -1
+        else:
+            inst = (tab_h[min(max((pid >> 8) * grp + (pid & 255), 0), len(tab_h) - 1)] if tab_h is not None
+                    else vm_inst_h[pid >> 8])
+            want = int(inst_ent_h[inst])
+        check(got == want, f"20: pick at ({x}, {y}) gave {got}, the host decode {want}")
+        picked.append(got)
+        o, d = screen_ray(cam, x, y, WIDTH, HEIGHT)
+        bi, dist = cast_ray_bodies(runner.ps, o, d)
+        o_h, d_h = screen_ray(cam_h, x, y, WIDTH, HEIGHT)
+        bi_h, dist_h = cast_ray_bodies(ps_h, o_h, d_h)
+        err = abs(float(dist) - float(dist_h)) / max(1.0, float(dist_h))
+        check(int(bi) == int(bi_h) and err <= ROSTER_RAY_TOL,
+              f"20: the ray at ({x}, {y}) hit {int(bi)} at {float(dist)}, on the CPU {int(bi_h)} at {float(dist_h)}")
+        ray_err = max(ray_err, err)
+        ray_hits += int(bi) >= 0
+    check(ray_hits >= 1, "20: no ray hit a body")
+
+    # ---- the graded tonemap on the frame's HDR: aberration, vignette and grain
+    kw = dict(tonemapper=config.tonemapper, exposure=config.exposure, gamma=config.gamma, frame=runner.frame_index)
+    hdr = ctx1["hdr"]
+    graded = apply_tonemap(hdr, **kw, **ROSTER_FX)
+    post_err = float((graded.cpu() - apply_tonemap(hdr.cpu(), **kw, **ROSTER_FX)).abs().max())
+    check(post_err <= ROSTER_POST_TOL, f"20: the graded tonemap differs from the CPU's by {post_err}")
+    check(bool((graded != apply_tonemap(hdr, **kw)).any()), "20: the effects changed nothing")
+    post_ms = {}
+    for label, fx in (("graded", ROSTER_FX), ("plain", {})):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        for _ in range(ROSTER_TIMING_REPS):
+            apply_tonemap(hdr, **kw, **fx)
+        ev[1].record()
+        torch.cuda.synchronize()
+        post_ms[label] = ev[0].elapsed_time(ev[1]) / ROSTER_TIMING_REPS
+
+    handoff["tmp"].cleanup()
+    n_fields = sum(len(fields) for name, fields in runner.state.comp.items() if name in scene._comp_data)
+    seconds = time.perf_counter() - t_phase
+    db = seen["delta_bytes"]
+    print(f"[20] roster {[n for n, _ in names]} ({card}): scene loaded from phase 19's JSON in {t_load:.3f} s; "
+          f"3 textures (BC7 KTX2 64x64, RGBA8 KTX2 80x48, BGRA DDS 56x40) and a material in the Renderer module's "
+          f"tables on the card, equal to TextureAtlas.build() and pack_materials", flush=True)
+    print(f"[20] App.run: {ROSTER_FRAMES} frames at {WIDTH}x{HEIGHT}, {fps:.3f} frames/s untraced after "
+          f"{ROSTER_WARMUP} warm-up with the roster, the AABB overlay and replication; run {t_run:.3f} s; "
+          f"{seen['bodies'][0]} bodies ({seen['bodies'][1]} dynamic), {seen['lines']} lines, {seen['drawn']} pixels drawn "
+          f"(frames 1 and {ROSTER_FRAMES}), each overlay equal to the CPU's; queueing "
+          f"{np.mean(seen['queue_ms'][ROSTER_WARMUP:]):.3f} ms host a frame, overlay "
+          f"{np.mean(overlay_ms[ROSTER_WARMUP:]):.3f} ms by events a frame (first {overlay_ms[0]:.3f}); sync_to_host "
+          f"+ replicate {np.mean(seen['net_ms'][ROSTER_WARMUP:]):.3f} ms host a frame (first {seen['net_ms'][0]:.3f}), "
+          f"of which sync_to_host {np.mean(seen['sync_ms'][ROSTER_WARMUP:]):.3f} ms ({n_fields} host copies, one a "
+          f"component field); "
+          f"bytes per delta {db} (full {db[0]}, then {db[-1]}); replica equal to the host mirror for "
+          f"{seen['replica_checked']} entities; peak memory allocated {peak / 2**30:.3f} GiB; kernel launches "
+          f"{launches}", flush=True)
+    print(f"[20] debug views {list(ROSTER_VIEWS)} each equal to apply_debug_view on the CPU; apply_debug_view ms "
+          f"by events { {m: round(v, 4) for m, v in view_ms.items()} }; picks at {ROSTER_PICKS} seeded pixels equal "
+          f"to the host decode ({sum(p >= 0 for p in picked)} on an entity); rays: {ray_hits} of {ROSTER_PICKS} hit a "
+          f"body, the same body as on the CPU, distance within {ray_err:.3g} relative; graded tonemap "
+          f"{ROSTER_FX} within {post_err:.3g} of the CPU, {post_ms['graded']:.4f} ms by events against "
+          f"{post_ms['plain']:.4f} plain; phase {seconds:.1f} s", flush=True)
+    del runner, host, app, scene, replica, ctx1
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2854,13 +3313,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 19. the app path: JSON scene, assets, script, audio and App.run at config 5 --------
-    app_launches = app_phase(dev, card, every_mod)
+    app_launches, handoff = app_phase(dev, card, every_mod)
+
+    # ---- 20. the default module roster on phase 19's scene: textures, overlay, network, picking ----
+    roster_launches = roster_phase(dev, card, every_mod, handoff)
 
     def row(name, source, replaces, mod, err, ms, plain, bd):
         # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
-        # path's timed frames), 18 (the atrium's group-route frames) and 19 (the App's frames)
+        # path's timed frames), 18 (the atrium's group-route frames), 19 (the App's frames) and
+        # 20 (the roster's frames)
         paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
-                 "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__]}
+                 "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__],
+                 "roster_20": roster_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}

@@ -16,7 +16,9 @@ rigid-body kernel (`physics/megakernel.py`), the plain substep
 JSON scenes and snapshots, scripts, the asset manager and packs, audio in the
 frame loop and the `App` runtime (`core/`, `scene/serialize.py`,
 `scene/snapshot.py`, `scripting/`, `assets/manager.py`, `assets/pack.py`,
-`audio/`). CUDA sources live in `*/csrc/`.
+`audio/`); and the default module roster (`core/modules.py`) with KTX2/DDS
+textures (`assets/bcdec.py`), networking (`network/`), the debug renderer,
+picking, debug views and the last post effects. CUDA sources live in `*/csrc/`.
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,8 @@ atlases, and material tables. This module keeps the same model: a name-keyed con
 (a deflated zip of `.npy` members) plus a `compile_resources` entry point that consumes
 a manifest and emits a pack, through the port's `bake`, `gltf` and `texture`.
 `python -m oxylus_tpu_torch.assets.pack <manifest.toml|json> -o out.oxpack` is the rcli
-analog. KTX2 and DDS textures are refused by `Texture.load` until their container
-readers are ported.
+analog. Texture members of any format `Texture.load` reads (KTX2 and DDS included) pack
+to the JAX package's members.
 """
 
 from __future__ import annotations

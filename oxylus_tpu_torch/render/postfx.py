@@ -2,10 +2,16 @@
 
 Auto-exposure (256-bin log-luminance histogram with exponential adaptation),
 bloom (soft-knee prefilter → half-res box down chain → bilinear up chain),
-tonemapping (none / ACES fitted / AgX / GT7, then gamma) and FXAA (luma-gradient
-directional blend from one-pixel shifts). Chromatic aberration, vignette and
-film grain are off by default and not ported: asking for them raises (the grain
-draws from `jax.random`).
+tonemapping (none / ACES fitted / AgX / GT7, then gamma) with chromatic
+aberration, vignette and film grain (all off by default, and off in the
+renderer, as in the JAX package), and FXAA (luma-gradient directional blend from
+one-pixel shifts).
+
+The grain differs by design: the JAX package draws `jax.random.uniform` under
+`fold_in(PRNGKey(0x617), frame % 16)`; this module draws from a CPU
+`torch.Generator` seeded from (0x617, frame % 16), so the card's grain equals the
+CPU's, and keeps the 16 fields per (shape, device) so no draw or copy runs in a
+frame after the first 16.
 """
 
 from __future__ import annotations
@@ -146,15 +152,85 @@ def tonemap_gt7(c: Tensor) -> Tensor:
 _TONEMAPPERS = (lambda x: torch.clamp(x, 0.0, 1.0), tonemap_aces, tonemap_agx, tonemap_gt7)
 
 
+GRAIN_SEED = 0x617
+_GRAIN_CACHE: dict = {}
+
+
+def _grain_field(gh: int, gw: int, k: int) -> Tensor:
+    """The (gh, gw, 1) grain draw of `frame % 16 == k`, uniform in [-0.5, 0.5),
+    from a CPU generator (the same stream for every device)."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed((GRAIN_SEED << 32) | k)
+    return torch.rand((gh, gw, 1), generator=gen, dtype=torch.float32) - 0.5
+
+
+def resize_cyclic(x: Tensor, shape) -> Tensor:
+    """`jnp.resize`: the flattened `x` repeated cyclically into `shape` (not a 2-D tile)."""
+    n = 1
+    for d in shape:
+        n *= d
+    flat = x.reshape(-1)
+    reps = -(-n // flat.numel())
+    return flat.repeat(reps)[:n].reshape(shape)
+
+
+def grain_noise(h: int, w: int, frame, film_grain_scale: float = 0.7, device=None) -> Tensor:
+    """The (h, w, 1) grain field of `frame`: a (h·scale, w·scale, 1) draw resized
+    cyclically, cached per (shape, frame % 16, device)."""
+    gh = max(int(h * film_grain_scale), 1)
+    gw = max(int(w * film_grain_scale), 1)
+    k = int(frame) % 16
+    key = (h, w, gh, gw, k, torch.device(device) if device is not None else torch.device("cpu"))
+    field = _GRAIN_CACHE.get(key)
+    if field is None:
+        field = resize_cyclic(_grain_field(gh, gw, k), (h, w, 1)).to(key[-1])
+        _GRAIN_CACHE[key] = field
+    return field
+
+
+def _centred_coords(h: int, w: int, device) -> tuple[Tensor, Tensor]:
+    """(h, 1) and (1, w) pixel coordinates / size − 0.5, float32. The sizes divide as
+    scalars on `device`: CUDA divides by a CPU scalar as a product with its
+    reciprocal, an ulp off the CPU's (and XLA's) division, which would move the
+    aberration's integer shift."""
+    size = lambda n: torch.full((), float(n), device=device)
+    yy = (torch.arange(h, dtype=torch.float32, device=device) / size(h) - 0.5)[:, None]
+    xx = (torch.arange(w, dtype=torch.float32, device=device) / size(w) - 0.5)[None, :]
+    return yy, xx
+
+
 def apply_tonemap(hdr: Tensor, tonemapper: int = 0, exposure=1.0, gamma: float = 2.2,
-                  chromatic_aberration: float = 0.0, film_grain: float = 0.0, vignette: float = 0.0,
-                  frame=0) -> Tensor:
-    """Final colour pass: exposure → tonemap → gamma.
+                  chromatic_aberration: float = 0.0, film_grain: float = 0.0, film_grain_scale: float = 0.7,
+                  vignette: float = 0.0, frame=0) -> Tensor:
+    """Final colour pass: exposure → CA → tonemap → vignette → grain → gamma.
     tonemapper: 0 None(+gamma) 1 ACES 2 AgX 3 GT7."""
-    if chromatic_aberration or film_grain or vignette:
-        raise NotImplementedError("chromatic aberration, vignette and film grain are not ported yet")
+    h, w = hdr.shape[:2]
+    dev = hdr.device
     c = hdr * exposure
+
+    if chromatic_aberration:
+        # radial RGB shift (tonemap.slang CA)
+        yy, xx = _centred_coords(h, w, dev)
+        sx = (chromatic_aberration * 8.0 * torch.broadcast_to(xx, (h, w))).to(torch.int32)
+        sy = (chromatic_aberration * 8.0 * torch.broadcast_to(yy, (h, w))).to(torch.int32)
+        cols = torch.arange(w, device=dev)[None, :]
+        rows = torch.arange(h, device=dev)[:, None]
+        r = c[torch.clamp(rows + sy, 0, h - 1), torch.clamp(cols + sx, 0, w - 1), 0]
+        b = c[torch.clamp(rows - sy, 0, h - 1), torch.clamp(cols - sx, 0, w - 1), 2]
+        c = torch.stack([r, c[..., 1], b], dim=-1)
+
     mapped = _TONEMAPPERS[min(max(int(tonemapper), 0), 3)](c)
+
+    if vignette:
+        yy, xx = _centred_coords(h, w, dev)
+        d = torch.sqrt(xx * xx + yy * yy) * 2.0
+        vig = torch.clamp(1.0 - vignette * d * d, 0.0, 1.0)
+        mapped = mapped * vig[..., None]
+
+    if film_grain:
+        noise = grain_noise(h, w, frame, film_grain_scale, dev)
+        mapped = torch.clamp(mapped + noise * film_grain * 0.15, 0.0, 1.0)
+
     return torch.clamp(mapped, 0.0, 1.0) ** (1.0 / gamma)
 
 

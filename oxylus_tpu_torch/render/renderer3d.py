@@ -63,7 +63,8 @@ camera's position, forward and up) equals the carried one. The key leaves out
 the camera's intrinsics and collides on swapped transforms, as in the JAX
 package (`tests/test_torch_render3d.py` names both).
 
-Not ported yet, and refused with NotImplementedError: debug views.
+`config.debug_view` replaces the final image after FXAA with
+`debugviews.apply_debug_view` of the frame's ctx, as in the JAX renderer.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ from . import gtao as gtao_ops
 from . import shadows
 from . import sky
 from .camera import CameraMatrices
+from .debugviews import apply_debug_view
 from .pbr import apply_pbr, lights_from_state
 from .postfx import adapt_exposure, apply_bloom, apply_fxaa, apply_tonemap, luminance_histogram
 from .renderer2d import render_particles_3d
@@ -327,12 +329,8 @@ class RendererInstance:
         spec = self.spec
         if enable_gtao is None:
             enable_gtao = config.vbgtao_enable
-        for on, what in (
-            (bool(config.debug_view), "debug views"),
-            (spec.raster_path not in ("tile", "group"), f"raster_path={spec.raster_path!r}"),
-        ):
-            if on:
-                raise _not_ported(what)
+        if spec.raster_path not in ("tile", "group"):
+            raise _not_ported(f"raster_path={spec.raster_path!r}")
         w, h = spec.width, spec.height
         dev = state.device
         prev = prev or {}
@@ -730,6 +728,11 @@ class RendererInstance:
         ldr = apply_tonemap(hdr, tonemapper=config.tonemapper, exposure=exposure, gamma=config.gamma)
         if config.fxaa_enable:
             ldr = apply_fxaa(ldr)
+        # debug view override (rr.debug_view modes, RendererCVar.cpp:16-23)
+        if config.debug_view:
+            dbg = apply_debug_view(config.debug_view, ctx)
+            if dbg is not None:
+                ldr = dbg
         ctx["final"] = ldr
         ctx["carry"] = carry
         ctx = self._run_cbs(RenderStage.POST_PROCESSING, "after", ctx)

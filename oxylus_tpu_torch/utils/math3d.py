@@ -223,6 +223,10 @@ def ortho_reverse_z(left, right, bottom, top, near, far, device=None) -> Tensor:
     return m
 
 
+def mat4_inverse(m: Tensor) -> Tensor:
+    return torch.linalg.inv(m)
+
+
 def aabb_transform(m: Tensor, bmin: Tensor, bmax: Tensor) -> tuple[Tensor, Tensor]:
     """Transform an AABB by an affine matrix → world AABB (Arvo's method)."""
     center = (bmin + bmax) * 0.5

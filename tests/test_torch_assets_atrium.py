@@ -108,11 +108,16 @@ def test_node_matrices_give_the_jax_quaternions(tmp_path):
 
 
 def test_texture_containers_not_ported_raise(tmp_path):
-    for suffix in (".ktx2", ".dds"):
+    """The KTX2 and DDS readers refuse a file that is not their container with the
+    JAX package's `ValueError` (`tests/test_torch_bcdec.py` holds what they read)."""
+    from oxylus_tpu.assets.texture import Texture as JTexture
+
+    for suffix, what in ((".ktx2", "not a KTX2 file"), (".dds", "not a DDS file")):
         p = tmp_path / f"t{suffix}"
         p.write_bytes(b"\0" * 128)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Texture.load(p)
+        for cls in (Texture, JTexture):
+            with pytest.raises(ValueError, match=what):
+                cls.load(p)
     arr = np.random.default_rng(1).integers(0, 256, (8, 6, 3), dtype=np.uint8)
     np.save(tmp_path / "t.npy", arr)
     tex = Texture.load(tmp_path / "t.npy")

@@ -186,11 +186,19 @@ def test_compile_resources_matches_jax(tmp_path, fmt):
 
 
 def test_compile_resources_refuses_ktx2_by_name(tmp_path):
-    (tmp_path / "t.ktx2").write_bytes(b"\xabKTX 20\xbb\r\n\x1a\n")
+    """A BasisLZ-supercompressed KTX2 member is refused, naming the file, by both
+    packages' resource compilers (`tests/test_torch_bcdec.py` packs readable ones)."""
+    import struct
+
+    from oxylus_tpu_torch.assets.texture import _KTX2_MAGIC
+
+    header = _KTX2_MAGIC + struct.pack("<9I", 37, 1, 4, 4, 0, 0, 1, 1, 1) + struct.pack("<4I2Q", 0, 0, 0, 0, 0, 0)
+    (tmp_path / "t.ktx2").write_bytes(header + struct.pack("<3Q", 104, 64, 64) + bytes(64))
     manifest = tmp_path / "m.json"
     manifest.write_text(json.dumps({"textures": [{"name": "t", "path": "t.ktx2"}]}))
-    with pytest.raises(NotImplementedError, match=".ktx2"):
-        tpack.compile_resources(manifest, tmp_path / "out.oxpack")
+    for pack in (tpack, jpack):
+        with pytest.raises(ValueError, match=r"t\.ktx2: BasisLZ"):
+            pack.compile_resources(manifest, tmp_path / "out.oxpack")
 
 
 def test_scene_loader_loads_requested_assets(tmp_path):

@@ -84,6 +84,15 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.assets.manager",
     "oxylus_tpu_torch.assets.pack",
     "oxylus_tpu_torch.audio.engine",
+    "oxylus_tpu_torch.assets.bcdec",
+    "oxylus_tpu_torch.network",
+    "oxylus_tpu_torch.network.wire",
+    "oxylus_tpu_torch.network.packet",
+    "oxylus_tpu_torch.network.manager",
+    "oxylus_tpu_torch.render.debugdraw",
+    "oxylus_tpu_torch.render.debugviews",
+    "oxylus_tpu_torch.render.picking",
+    "oxylus_tpu_torch.core.modules",
 ]
 
 PROBE = f"""

@@ -388,8 +388,12 @@ def test_postfx_matches_jax(tonemapper):
     jf = np.asarray(jpostfx.apply_fxaa(jnp.asarray(jt)))
     tf = tpostfx.apply_fxaa(torch.from_numpy(jt)).numpy()
     np.testing.assert_allclose(tf, jf, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tpostfx.apply_tonemap(torch.from_numpy(jb), film_grain=0.1)
+    # chromatic aberration and vignette through the whole chain (held apart from the
+    # curves within 1e-6 by `test_torch_debugviews_postfx.py`)
+    fx = dict(tonemapper=tonemapper, exposure=1.3, chromatic_aberration=0.5, vignette=0.4)
+    jt = np.asarray(jpostfx.apply_tonemap(jnp.asarray(jb), **fx))
+    tt = tpostfx.apply_tonemap(torch.from_numpy(jb), **fx).numpy()
+    np.testing.assert_allclose(tt, jt, rtol=1e-5, atol=1e-5)
 
 
 def _fractions(got, want, k2):
