@@ -23,7 +23,9 @@ golden scene (phase 17a) and the config-5 runner (phase 17b), and the app
 path (phase 19: the config-5 scene with sound and a script through JSON, the
 asset manager and `App.run`), and the default module roster on that scene
 (phase 20: KTX2/DDS textures, the debug overlay, loopback replication, debug
-views, picking and the graded tonemap), with bodies and the atrium made from a
+views, picking and the graded tonemap), and the editor and the UI on that
+scene and on config 2's sprite ids (phase 21: project, panels, undo, play and
+stop, picks, ImGui and RML composites), with bodies and the atrium made from a
 fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
@@ -247,6 +249,26 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    along `screen_ray` there gives the CPU's body and distance (within 1e-4
    relative) and hits at least once; `apply_tonemap` with chromatic aberration
    0.5, vignette 0.4 and grain 0.3 on the frame's HDR is within 1e-6 of the CPU.
+21. the editor and the UI on phase 19's scene directory (`editor_phase`): a
+   project whose start scene is phase 19's JSON, loaded by
+   `ProjectPanel.load_project_for_editor` on the card; the hierarchy, the
+   inspector of a box and the content listing equal to a CPU load's; a gizmo
+   drag along the axis `ViewportPanel.pick_axis` returns at the box's handle
+   (the update equal to the CPU's), then an inspector edit, undo, undo, redo,
+   with the edit scene's device state after `merge_host_edits` bit-equal to
+   the CPU scene's after each step; one edit frame, then `on_scene_simulate`
+   and a `SceneRunner` over the runtime copy for 2 warm-up and 10 timed frames
+   (frames/s by the host clock) and `on_scene_stop`: #1, #4, #5 and #6
+   launched and no other, the image finite in [0, 1], the edit scene's device
+   state and a new frame of it bit-equal to before play; config 2's sprite-id
+   image from `render_2d_with_particles` (#8 launched, equal to the blend's
+   plain version) and `ViewportPanel.pick` at 16 seeded pixels equal to its
+   ids (each pick two views and one read of one element, by the operations
+   it dispatches); an `ImGuiRenderer`
+   window (a click, a toggle, a slider drag from injected mouse events through
+   `Input`) and an `RmlDocument` (hover, click, data, an onclick handler)
+   composited over the last play frame on the card, each within 1e-6 of the
+   CPU's composite; the console, hierarchy, asset and network viewers' texts.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -271,6 +293,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 DT = 1.0 / 60.0
 FLAGSHIP_BOXES = 1022
@@ -1177,7 +1200,7 @@ def app_phase(dev, card: str, every_mod) -> tuple[dict, dict]:
     asset manager, a `ScriptManager`, an `AudioEngine` and an `Input` as its
     modules; the frame callback steps the runner, presents to a `Window` and
     marks a `Profiler` frame. Returns the kernels' launch counts in the App's
-    frames, and what phase 20 loads again: the directory holding the scene's
+    frames, and what phases 20 and 21 load again: the directory holding the scene's
     JSON and its assets (to clean up), the scene spec and the runner's
     arguments."""
     import json as _json
@@ -1827,7 +1850,6 @@ def roster_phase(dev, card: str, every_mod, handoff: dict) -> dict:
         torch.cuda.synchronize()
         post_ms[label] = ev[0].elapsed_time(ev[1]) / ROSTER_TIMING_REPS
 
-    handoff["tmp"].cleanup()
     n_fields = sum(len(fields) for name, fields in runner.state.comp.items() if name in scene._comp_data)
     seconds = time.perf_counter() - t_phase
     db = seen["delta_bytes"]
@@ -1853,6 +1875,389 @@ def roster_phase(dev, card: str, every_mod, handoff: dict) -> dict:
           f"{ROSTER_FX} within {post_err:.3g} of the CPU, {post_ms['graded']:.4f} ms by events against "
           f"{post_ms['plain']:.4f} plain; phase {seconds:.1f} s", flush=True)
     del runner, host, app, scene, replica, ctx1
+    torch.cuda.empty_cache()
+    return launches
+
+
+EDITOR_WARMUP, EDITOR_FRAMES = 2, 10  # phase 21: play frames, the first EDITOR_WARMUP untimed
+EDITOR_PICKS, EDITOR_PICKS_ON_SPRITES = 16, 10  # phase 21: seeded pixels picked on config 2, of them on sprites
+EDITOR_GIZMO_TOL = 1e-6  # the card-built camera's vectors against the CPU-built camera's (sin/cos round apart)
+EDITOR_UI_TOL = 1e-6  # the UI composites on the card against the CPU's (the same float32 blend: exact expected)
+EDITOR_RML = """
+<rml><head><style>
+.menu { background-color: #223344cc; width: 30%; margin: 40; padding: 10; }
+.menu p { color: yellow; }
+#title { font-size: 2; text-align: center; }
+button { background-color: blue; height: 28; padding: 6; }
+button:hover { background-color: orange; }
+button:active { background-color: red; }
+</style></head>
+<body><div class="menu">
+  <div id="title">{{ game.title }}</div>
+  <p>Frame {{ frame }}: {{ fps }} frames/s</p>
+  <button id="resume" onclick="resume">Resume</button>
+</div></body></rml>
+"""
+
+
+class DispatchLog(TorchDispatchMode):
+    """Records the name and the tensor arguments' shapes of every ATen operation
+    dispatched while the block runs: what a host-side call really does to its
+    tensors, on any device."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list[tuple[str, list[tuple[int, ...]]]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((func.overloadpacket.__name__, [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]))
+        return func(*args, **(kwargs or {}))
+
+
+def state_leaves(st) -> dict:
+    """Every tensor of a SceneState (its component and mask dicts and particle
+    pool flattened), by name."""
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v
+        elif isinstance(v, dict):
+            for k, sub in v.items():
+                if isinstance(sub, dict):
+                    out.update({f"{f.name}.{k}.{kk}": t for kk, t in sub.items()})
+                else:
+                    out[f"{f.name}.{k}"] = sub
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{g.name}": getattr(v, g.name) for g in dataclasses.fields(v)
+                        if isinstance(getattr(v, g.name), torch.Tensor)})
+    return out
+
+
+def states_bit_equal(got, want) -> list[str]:
+    """The names of the tensors in which two SceneStates differ, bits, dtype or shape."""
+    g, w = state_leaves(got), state_leaves(want)
+    if g.keys() != w.keys():
+        return sorted(g.keys() ^ w.keys())
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [k for k in w if g[k].dtype != w[k].dtype or g[k].shape != w[k].shape
+            or not torch.equal(bits(g[k]).cpu(), bits(w[k]).cpu())]
+
+
+def editor_phase(dev, card: str, every_mod, handoff: dict) -> dict:
+    """Phase 21, the editor and the UI: phase 19's scene as a project's start scene,
+    loaded by `ProjectPanel.load_project_for_editor` on the card and held against a
+    CPU load (panels, a gizmo drag, an inspector edit with undo and redo, the device
+    state after each step); one edit frame, then simulate for 12 frames and stop
+    (the edit scene's state and frame unchanged); `ViewportPanel.pick` on config 2's
+    sprite-id image against the blend's plain version; an ImGui window and an RML
+    document composited over the last play frame against the CPU, and the debug
+    widgets' texts. Returns the kernels' launch counts over the edit and play
+    frames and config 2's sprite-id image."""
+    import numpy as np
+
+    from oxylus_tpu_torch.assets.manager import AssetManager
+    from oxylus_tpu_torch.core.config import CVarSystem
+    from oxylus_tpu_torch.core.input import Input
+    from oxylus_tpu_torch.core.project import Project, ProjectConfig
+    from oxylus_tpu_torch.core.vfs import VFS
+    from oxylus_tpu_torch.editor import EditorContext, InspectorPanel, SceneHierarchyPanel, SceneStateKind, ViewportPanel
+    from oxylus_tpu_torch.editor.gizmo import host_camera
+    from oxylus_tpu_torch.editor.panels import ContentPanel
+    from oxylus_tpu_torch.editor.workspace import ProjectPanel
+    from oxylus_tpu_torch.frame2d import build_frame2d_scene
+    from oxylus_tpu_torch.network.manager import NetworkManager
+    from oxylus_tpu_torch.ops import blend2d
+    from oxylus_tpu_torch.render.camera import camera_from_state
+    from oxylus_tpu_torch.render.renderer2d import render_2d_with_particles
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.scene import serialize
+    from oxylus_tpu_torch.ui.imgui import ImGuiRenderer
+    from oxylus_tpu_torch.ui.rml import RmlDocument
+    from oxylus_tpu_torch.ui.text import UIDocument
+    from oxylus_tpu_torch.ui.widgets import AssetManagerViewer, NetStatsViewer, RuntimeConsole, SceneHierarchyViewer
+
+    t_phase = time.perf_counter()
+    root, spec, runner_kw = handoff["root"], handoff["spec"], handoff["runner_kw"]
+    tree = lambda nodes: [dataclasses.asdict(n) for n in nodes]
+
+    # ---- the project: phase 19's JSON as its start scene, loaded on the card and on the CPU
+    Project(ProjectConfig(name="chip_smoke", start_scene="scene.json", asset_directory="."),
+            directory=root).save(root / "chip_smoke.oxproj")
+    assets = AssetManager()
+    projects = ProjectPanel(vfs=VFS(), asset_manager=assets)
+    t0 = time.perf_counter()
+    proj, scene = projects.load_project_for_editor(root / "chip_smoke.oxproj", spec=spec, device=dev)
+    check(scene is not None and scene.device == dev, "21: the project's start scene did not load on the card")
+    scene.renderer_config.ssr_enable = True  # not in the JSON schema (phase 19)
+    ctx = EditorContext(scene)
+    hierarchy, inspector = SceneHierarchyPanel(ctx), InspectorPanel(ctx)
+    hier_card = tree(hierarchy.build())
+    t_load = time.perf_counter() - t0
+    cpu_scene = serialize.load_from_file(root / "scene.json", spec=spec, device="cpu")
+    cpu_scene.renderer_config.ssr_enable = True
+    cpu_ctx = EditorContext(cpu_scene)
+    check(hier_card == tree(SceneHierarchyPanel(cpu_ctx).build()), "21: the hierarchy differs from the CPU load's")
+    content = [dataclasses.asdict(e) for e in ContentPanel(ctx, str(root), asset_manager=assets).build()]
+    check(projects.build()["active"] == "chip_smoke" and not projects.visible
+          and any(e["name"] == "scene.json" and e["asset_type"] == "SCENE" for e in content),
+          f"21: the project panel {projects.build()}, content {[e['name'] for e in content]}")
+
+    # ---- editing: a gizmo drag and an inspector edit, then undo, undo, redo; the
+    # device state after each step bit-equal to the CPU scene's
+    st, st_cpu = scene.to_device_state(), cpu_scene.to_device_state()
+    cam_i = scene.entity("camera").index
+    cam = camera_from_state(st, cam_i, WIDTH / HEIGHT)
+    cam_cpu = camera_from_state(st_cpu, cam_i, WIDTH / HEIGHT)
+    host, host_cpu = host_camera(cam), host_camera(cam_cpu)
+    cam_err = max(float(np.abs(getattr(host, k) - getattr(host_cpu, k)).max())
+                  for k in ("position", "forward", "right", "up"))
+    check(cam_err <= EDITOR_GIZMO_TOL, f"21: the card's camera vectors differ from the CPU's by {cam_err}")
+    # the box whose X handle (70 % along it, world mode: the handle scales with its distance) is nearest the
+    # image centre
+    vp = cam.view_projection.cpu().numpy()
+    best = None
+    for ent in scene.entities():
+        if not ent.name.startswith("box_"):
+            continue
+        e = ent.index
+        p = scene.get_field(e, "TransformComponent", "position").astype(np.float32)
+        scale = max(float(np.linalg.norm(p - host.position)) * 0.2, 1e-3)
+        clip = vp @ np.append(p + np.array([0.7 * scale, 0.0, 0.0], np.float32), 1.0)
+        if clip[3] <= 0:
+            continue
+        x, y = (clip[0] / clip[3] + 1) / 2 * WIDTH - 0.5, (clip[1] / clip[3] + 1) / 2 * HEIGHT - 0.5
+        d = math.hypot(x - WIDTH / 2, y - HEIGHT / 2)
+        if 0 <= x < 0.9 * WIDTH and 0 <= y < 0.9 * HEIGHT and (best is None or d < best[0]):
+            best = (d, ent.name, e, p, x, y)
+    check(best is not None, "21: no box's gizmo handle is on screen")
+    _, box_name, box, pos, px, py = best
+    t0 = time.perf_counter()
+    insp_card = tree(inspector.build(box))
+    t_load += time.perf_counter() - t0
+    check(insp_card == tree(InspectorPanel(cpu_ctx).build(box)), "21: the inspector differs from the CPU load's")
+    ctx.select(box)
+    cpu_ctx.select(box)
+    viewport, cpu_viewport = ViewportPanel(ctx, WIDTH, HEIGHT), ViewportPanel(cpu_ctx, WIDTH, HEIGHT)
+    cam_host = to_cpu(cam)  # the CPU side reads the same camera: the gizmo math is host NumPy in both
+    axis = viewport.pick_axis(cam, px, py)
+    check(axis == cpu_viewport.pick_axis(cam_host, px, py) and axis >= 0, f"21: pick_axis gave {axis}")
+    p1 = (px + WIDTH / 24, py + HEIGHT / 43)  # 80 and 25 px at 1080p
+    drag = viewport.drag(cam, axis, (px, py), p1)
+    check(drag == cpu_viewport.drag(cam_host, axis, (px, py), p1) and "position" in drag,
+          f"21: the drag's update {drag} differs from the CPU's")
+    moved = float(np.abs(np.asarray(drag["position"]) - pos).max())
+    steps = []
+    for step in ("edit", "undo", "undo", "redo"):
+        for c, insp in ((ctx, inspector), (cpu_ctx, InspectorPanel(cpu_ctx))):
+            if step == "edit":
+                insp.edit(box, "TransformComponent", "scale", (1.0, 1.5, 0.75))
+            else:
+                check(getattr(c, step)(), f"21: {step} found nothing to do")
+        st, st_cpu = scene.merge_host_edits(st), cpu_scene.merge_host_edits(st_cpu)
+        diff = states_bit_equal(st, st_cpu)
+        check(not diff, f"21: after {step} the edit scene's device state differs from the CPU's in {diff[:6]}")
+        steps.append((step, ctx.undo_count, ctx.redo_count,
+                      st.comp["TransformComponent"]["scale"][box].tolist(), st.world[box, :3, 3].tolist()))
+    check([s[1:3] for s in steps] == [(2, 0), (1, 1), (0, 2), (1, 1)], f"21: undo/redo counts {steps}")
+    check(steps[0][3] == [1.0, 1.5, 0.75] and steps[1][3] == steps[3][3] != steps[0][3],
+          f"21: the inspector edit did not reach the device state: {steps}")
+    check(steps[2][4] != steps[3][4], "21: the redone drag did not move the box's world transform")
+
+    # ---- play: one edit frame, then simulate for the play frames, then stop
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    edit_runner = SceneRunner(scene, **runner_kw)
+    before = scene.merge_host_edits(st)
+    edit_runner.state = before
+    edit_frame = render_ctx(edit_runner, edit_runner.config)["final"].clone()
+    fields_before = {(c, k): v.copy() for c, fs in scene._comp_data.items() for k, v in fs.items()}
+    runtime = ctx.on_scene_simulate()
+    check(ctx.state == SceneStateKind.SIMULATE and runtime is ctx.scene and runtime is not scene and runtime.running,
+          "21: simulate did not start a runtime copy")
+    play = SceneRunner(runtime, **runner_kw)
+    for k in range(EDITOR_WARMUP + EDITOR_FRAMES):
+        image = play.step(DT)
+        if k == EDITOR_WARMUP - 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    fps = EDITOR_FRAMES / (time.perf_counter() - t0)
+    last_play = image.clone()
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(image).all())
+          and image.min().item() >= 0.0 and image.max().item() <= 1.0, "21: the play frame is not finite in [0, 1]")
+    runtime_moved = float((play.state.world[box] - before.world[box]).abs().max())
+    check(ctx.on_scene_stop() is scene and ctx.state == SceneStateKind.EDIT and ctx.runtime_scene is None,
+          "21: stop did not return the edit scene")
+    check(all(np.array_equal(v, fields_before[key]) for key, v in
+              (((c, k), v) for c, fs in scene._comp_data.items() for k, v in fs.items())),
+          "21: play changed the edit scene's host mirror")
+    after = scene.merge_host_edits(st)
+    diff = states_bit_equal(after, before)
+    check(not diff, f"21: after stop the edit scene's device state differs from before play in {diff[:6]}")
+    edit_runner.state = after
+    again = render_ctx(edit_runner, edit_runner.config)["final"]
+    check(torch.equal(again.view(torch.int32), edit_frame.view(torch.int32)),
+          "21: the edit scene's frame after stop differs from the edit frame")
+    check(not torch.equal(last_play, edit_frame), "21: the play frames did not move anything")
+    torch.cuda.synchronize()
+    play_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    for mod in every_mod:
+        n = play_launches[mod.__name__]
+        if mod.__name__.rsplit(".", 1)[-1] in ("megakernel_compact", "raster3d", "hiz", "raster_depth"):
+            check(n > 0, f"21: the edit and play frames never launched {mod.__name__}")
+        else:
+            check(n == 0, f"21: the edit and play frames launched {mod.__name__} {n} times")
+    del edit_runner, play, runtime
+    torch.cuda.empty_cache()
+
+    # ---- the viewport's pick on config 2's sprite-id image, against the blend's plain version
+    scene2, kw2 = build_frame2d_scene(WIDTH, HEIGHT, device=dev)
+    runner2 = SceneRunner(scene2, **kw2)
+    runner2.run(MAIN_WARMUP)
+    cam2 = runner2.active_camera()
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    color, vis = render_2d_with_particles(runner2.state, cam2, runner2.bindings, width=WIDTH, height=HEIGHT)
+    torch.cuda.synchronize()
+    pick_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    with plain_on_card(blend2d):
+        color_p, vis_p = render_2d_with_particles(runner2.state, cam2, runner2.bindings, width=WIDTH, height=HEIGHT)
+    check(torch.equal(vis, vis_p) and torch.equal(color.view(torch.int32), color_p.view(torch.int32)),
+          "21: the sprite image differs from the blend's plain version")
+    for mod in every_mod:
+        n = pick_launches[mod.__name__]
+        check(n > 0 if mod is blend2d else n == 0, f"21: the sprite-id image launched {mod.__name__} {n} times")
+    vis_h = vis_p.cpu().numpy()
+    hits = np.argwhere(vis_h >= 0)
+    prng = np.random.default_rng(2121)
+    pts = [tuple(int(v) for v in hits[k][::-1]) for k in prng.choice(len(hits), EDITOR_PICKS_ON_SPRITES, replace=False)]
+    pts += [(int(prng.integers(0, WIDTH)), int(prng.integers(0, HEIGHT))) for _ in range(EDITOR_PICKS - len(pts))]
+    ctx2 = EditorContext(scene2)
+    viewport2 = ViewportPanel(ctx2, WIDTH, HEIGHT)
+    picked = []
+    for x, y in pts:
+        eid = viewport2.pick(vis, x, y)
+        check(eid == int(vis_h[y, x]) and ctx2.selection == ([eid] if eid >= 0 else []),
+              f"21: pick at ({x}, {y}) gave {eid} and selected {ctx2.selection}, the plain blend's id {int(vis_h[y, x])}")
+        picked.append(eid)
+    check(sum(e >= 0 for e in picked) >= EDITOR_PICKS_ON_SPRITES - 2, f"21: picks {picked}")
+    # each pick reads one pixel: two views (`select`) and one read of the 0-d result, no other operation
+    with DispatchLog() as log:
+        for x, y in pts:
+            viewport2.pick(vis, x, y)
+    reads = [shapes for name, shapes in log.ops if name == "_local_scalar_dense"]
+    check(reads == [[()]] * EDITOR_PICKS and {name for name, _ in log.ops} == {"select", "_local_scalar_dense"},
+          f"21: the {EDITOR_PICKS} picks dispatched {log.ops}")
+    del runner2, color, color_p, vis_p
+    torch.cuda.empty_cache()
+
+    # ---- the UI over the last play frame: an ImGui window and an RML document
+    inputs = Input()
+    gui = ImGuiRenderer(WIDTH, HEIGHT)
+    row = lambda k: 40 + 18 + 6 + k * 20 + 5  # the middle of the window's k-th widget row (ROW_H 18, PAD 6)
+    events = [[("move", 120, row(1)), ("down",)], [("up",)], [("move", 120, row(2)), ("down",)], [("up",)],
+              [("move", 60, row(3)), ("down",)], [("move", 300, row(3))], [("up",)]]
+    values = []
+    for evs in events:
+        for ev in evs:
+            if ev[0] == "move":
+                inputs.inject_mouse_move(ev[1], ev[2])
+            elif ev[0] == "down":
+                inputs.inject_mouse_down(0)
+            else:
+                inputs.inject_mouse_up(0)
+        gui.new_frame(input_module=inputs)
+        gui.begin("editor", x=40, y=40, w=360, h=160)
+        gui.text(f"{fps:.2f} frames/s in play")
+        values.append((gui.button("Step"), gui.checkbox("Gizmo snap"), gui.slider_float("Exposure", 0.0, 4.0, 1.0)))
+        gui.end()
+        if len(values) < len(events):
+            gui.render()
+        inputs.reset_pressed()
+    clicks, toggled, slider = sum(v[0] for v in values), values[-1][1], values[-1][2]
+    check(clicks == 1 and toggled is True and slider == gui.get_value("editor", "Exposure") and slider != 1.0,
+          f"21: the ImGui widgets gave {values}")
+    rml = RmlDocument(EDITOR_RML, width=WIDTH, height=HEIGHT)
+    rml.set_data(game={"title": "OXYLUS EDITOR"}, frame=EDITOR_WARMUP + EDITOR_FRAMES, fps=f"{fps:.2f}")
+    fired = []
+    rml.bind("resume", lambda el: fired.append(el.id))
+    rml.layout()
+    bx, by, bw, bh = rml.root.find("resume").box
+    for down in (False, True, False):
+        rml.process_mouse(bx + bw / 2, by + bh / 2, down)
+    rml.layout()
+    check(fired == ["resume"] and rml.root.find("resume").style["background-color"] == "orange"
+          and rml.root.find("title").attrs["__lines__"] == ["OXYLUS EDITOR"],
+          f"21: the RML document: fired {fired}, the button's style {rml.root.find('resume').style}, the title's "
+          f"lines {rml.root.find('title').attrs['__lines__']}")
+    rml_doc = UIDocument(WIDTH, HEIGHT)
+    rml.emit(rml_doc)
+    ui_rows = []
+    for label, doc, composite in (("imgui", gui.doc, lambda f: gui.render(frame=f)),
+                                  ("rml", rml_doc, rml_doc.composite_over)):
+        t0 = time.perf_counter()
+        records, _ = doc.build_batch()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = composite(last_play)
+        ev[1].record()
+        torch.cuda.synchronize()
+        want = doc.composite_over(last_play.cpu())
+        check(out.device == dev and tuple(out.shape) == (HEIGHT, WIDTH, 4), f"21: the {label} composite's device")
+        err = float((out.cpu() - want).abs().max())
+        check(err <= EDITOR_UI_TOL, f"21: the {label} composite differs from the CPU's by {err}")
+        check(bool((out[..., :3] != last_play).any()), f"21: the {label} composite drew nothing")
+        ui_rows.append((label, len(records), batch_ms, ev[0].elapsed_time(ev[1]), err,
+                        torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))))
+
+    # ---- the debug widgets' texts
+    cvars = CVarSystem()
+    cvars.bind_dataclass("renderer", scene.renderer_config)
+    console = RuntimeConsole(cvars)
+    said = [console.execute(c) for c in ("help", "renderer.exposure 1.25", "renderer.exposure", "nope")]
+    check(said[1] == said[2] == "renderer.exposure = 1.25" and scene.renderer_config.exposure == 1.25
+          and said[3].startswith("unknown"), f"21: the console said {said}")
+    hier_lines = SceneHierarchyViewer(scene).render_text().splitlines()
+    check(len(hier_lines) == 1 + int(scene._alive.sum()), f"21: the hierarchy viewer wrote {len(hier_lines)} lines")
+    asset_lines = AssetManagerViewer(assets).render_text().splitlines()
+    net = NetworkManager()
+    server = net.create_server()
+    client = net.create_client("127.0.0.1", server.port, name="editor")
+    end = time.monotonic() + NET_DEADLINE
+    while not (client.connected and server.peers):
+        check(time.monotonic() < end, f"21: no loopback handshake within {NET_DEADLINE} s")
+        net.update()
+        time.sleep(0.0005)
+    net_lines = NetStatsViewer(net).render_text().splitlines()
+    net.deinit()
+    check(len(net_lines) == 3 and net_lines[1].startswith("server[0]  editor"), f"21: net stats {net_lines}")
+    check(any(line.endswith("scene.json") for line in asset_lines[1:]), f"21: the asset viewer listed {asset_lines}")
+
+    seconds = time.perf_counter() - t_phase
+    launches = {k: play_launches[k] + pick_launches[k] for k in play_launches}
+    print(f"[21] project loaded for the editor on the card and panels built in {t_load * 1e3:.1f} ms "
+          f"({int(scene._alive.sum())} entities; hierarchy, the inspector of {box_name} and the content listing equal to a "
+          f"CPU load); camera vectors card vs CPU within {cam_err:.3g}; gizmo axis {axis}, drag moved {box_name} by "
+          f"{moved:.4f} m, equal to the CPU's; edit, undo, undo, redo: the device state bit-equal to the CPU's after "
+          f"each ({card})", flush=True)
+    print(f"[21] play (simulate): {EDITOR_FRAMES} frames at {WIDTH}x{HEIGHT}, {fps:.3f} frames/s by the host clock "
+          f"after {EDITOR_WARMUP} warm-up, ending in a sync; {box_name} moved {runtime_moved:.4f} m in play; after stop the "
+          f"edit scene's device state and frame bit-equal to before play; launches over the edit and play frames "
+          f"{play_launches}", flush=True)
+    print(f"[21] config 2's sprite-id image: blend launches {pick_launches[blend2d.__name__]}, equal to the plain "
+          f"version; {EDITOR_PICKS} picks equal to its ids ({sum(e >= 0 for e in picked)} on sprites), "
+          f"each two views and one 4-byte read ({len(log.ops)} operations dispatched in all)", flush=True)
+    for label, quads, batch_ms, comp_ms, err, exact in ui_rows:
+        print(f"[21] {label}: {quads} quads composited over the last play frame; build_batch {batch_ms:.3f} ms host, "
+              f"composite {comp_ms:.3f} ms by events ({card}); against the CPU's within {err:.3g} "
+              f"({'bit-equal' if exact else 'not bit-equal'})", flush=True)
+    print(f"[21] ImGui: one click, the checkbox on, the slider at {slider:.4f}; RML: hover and click, onclick fired "
+          f"{fired}; widgets: console {said[1]!r}, hierarchy {len(hier_lines)} lines, assets {len(asset_lines) - 1}, "
+          f"net stats {net_lines[1]!r}; launches {launches}; phase {seconds:.1f} s", flush=True)
+    del scene, cpu_scene, ctx, cpu_ctx, last_play, edit_frame, again
     torch.cuda.empty_cache()
     return launches
 
@@ -3318,13 +3723,17 @@ def main() -> int:
     # ---- 20. the default module roster on phase 19's scene: textures, overlay, network, picking ----
     roster_launches = roster_phase(dev, card, every_mod, handoff)
 
+    # ---- 21. the editor and the UI: phase 19's scene as a project, play/stop, picks, UI ----
+    editor_launches = editor_phase(dev, card, every_mod, handoff)
+    handoff["tmp"].cleanup()
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
-        # path's timed frames), 18 (the atrium's group-route frames), 19 (the App's frames) and
-        # 20 (the roster's frames)
+        # path's timed frames), 18 (the atrium's group-route frames), 19 (the App's frames), 20
+        # (the roster's frames) and 21 (the editor's edit and play frames and config 2's id image)
         paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
                  "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__],
-                 "roster_20": roster_launches[mod.__name__]}
+                 "roster_20": roster_launches[mod.__name__], "editor_21": editor_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}

@@ -93,6 +93,15 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.render.debugviews",
     "oxylus_tpu_torch.render.picking",
     "oxylus_tpu_torch.core.modules",
+    "oxylus_tpu_torch.ui.text",
+    "oxylus_tpu_torch.ui.imgui",
+    "oxylus_tpu_torch.ui.rml",
+    "oxylus_tpu_torch.ui.widgets",
+    "oxylus_tpu_torch.editor",
+    "oxylus_tpu_torch.editor.context",
+    "oxylus_tpu_torch.editor.gizmo",
+    "oxylus_tpu_torch.editor.panels",
+    "oxylus_tpu_torch.editor.workspace",
 ]
 
 PROBE = f"""
