@@ -25,8 +25,9 @@ asset manager and `App.run`), and the default module roster on that scene
 (phase 20: KTX2/DDS textures, the debug overlay, loopback replication, debug
 views, picking and the graded tonemap), and the editor and the UI on that
 scene and on config 2's sprite ids (phase 21: project, panels, undo, play and
-stop, picks, ImGui and RML composites), with bodies and the atrium made from a
-fixed seed. Every
+stop, picks, ImGui and RML composites), and the tile raster route at 16- and
+32-px tiles (phase 22: config 5 and the atrium, bands, sprite texture tiles),
+with bodies and the atrium made from a fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -269,6 +270,24 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    `Input`) and an `RmlDocument` (hover, click, data, an onclick handler)
    composited over the last play frame on the card, each within 1e-6 of the
    CPU's composite; the console, hierarchy, asset and network viewers' texts.
+22. the tile raster route at the tile edges 16 and 32 (`tiles_phase`): kernel
+   #4 bit-equal (depth, vid, G-buffer) to its plain version at tiles 16 and 32
+   on `seeded_tiles` (three seeds, and two masked-pass inputs at K2 128) and
+   `tie_tiles` re-tiled, and at tiles 64 and 32 on bands of `seeded_tiles`
+   (`tile_base` > 0); `build_frame5_scene(1920, 1080, raster={"tile": t})`
+   for t = 16 and 32: 2 warm-up frames, then 20 with every launch count set
+   to 0 just before, #1, #4, #5 and #6 launched and no other, the image finite
+   in [0, 1], `expand_overflow` 0, every frame's binning drop at most 5 %;
+   from the tile-16 runner's state and a carry one frame old (the first of up
+   to 10 frames whose render runs the late pass) one frame rendered at tiles
+   64, 16 and 32 through `RendererInstance`, each early and late pass held
+   exactly against the plain version and timed (events and a CUDA graph)
+   beside its bound and CTA count; the atrium at `OX_TILE=32` through
+   `bench.raster_env` (2 warm-up and 3 frames: the overflow gates, the opaque
+   and masked passes at 32-px tiles, #4, #5, #6 launched and no other: the
+   atrium has no bodies), its frame's passes held and timed;
+   `build_sprite_texture_tiles` on the card bit-equal to the CPU on 256
+   seeded sprites over a 512² atlas.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -393,6 +412,10 @@ GOLDEN_SETTINGS = {  # tests/test_golden_images.py's five goldens
     "full": dict(atmosphere=True, enable_shadows=True, ssr=True), "sky65": dict(atmosphere=True, fov_deg=65.0),
 }
 EVENT_FRAMES = 4
+TILES_EDGES = (16, 32)  # phase 22: the tile route's other tile edges, driven on config 5
+TILES_FRAMES = 20  # phase 22: gated frames of each config-5 runner after its warm-up
+TILES_ATRIUM_FRAMES = 3  # phase 22: the atrium's frames at OX_TILE=32 after its warm-up
+TILES_SPRITES = 256  # phase 22: per-sprite materials of the texture-tile check
 
 
 def check(cond: bool, msg: str) -> None:
@@ -785,14 +808,19 @@ def _tile_comb(planes, tz, rng):
     return torch.from_numpy(comb)
 
 
-def seeded_tiles(seed, dev, k2=TILE_SEED_K2):
+def seeded_tiles(seed, dev, k2=TILE_SEED_K2, tile=64, band_row=0):
     """Tile raster inputs made from a seed with NumPy, (entries (T, K2), comb,
-    counts, near_r, width, height) on `dev` at TILE_SEED_W × TILE_SEED_H (not a
-    multiple of the 64-px tile): planar triangles with vertices snapped to pixel
-    centres, slivers along sub-tile borders, single-corner covers, wd planes
-    crossing zero, depth ties, dead slots and tile-covering triangles in front
-    (so the early-out fires); each tile's list sorted by tz, nearest first, with
-    missing entries inside its count and -1 past it; one empty tile, one full."""
+    counts, near_r, width, height, tile, tile_base) on `dev` at TILE_SEED_W ×
+    TILE_SEED_H (not a multiple of any tile edge): planar triangles with
+    vertices snapped to pixel centres, slivers along sub-tile borders,
+    single-corner covers, wd planes crossing zero, depth ties, dead slots and
+    tile-covering triangles in front (so the early-out fires); each tile's
+    list sorted by tz, nearest first, with missing entries inside its count
+    and -1 past it; one empty tile, one full. With `band_row` > 0 the input is
+    a band of a taller image starting at that row of tiles (tile_base =
+    band_row · tiles a row): the triangles are made in the band's coordinates
+    and moved down to it, so the planes cover the band where they covered the
+    image."""
     import numpy as np
 
     from oxylus_tpu_torch.ops import raster3d as tr
@@ -812,10 +840,13 @@ def seeded_tiles(seed, dev, k2=TILE_SEED_K2):
             if abs((v[1][0] - v[0][0]) * (v[2][1] - v[0][1]) - (v[1][1] - v[0][1]) * (v[2][0] - v[0][0])) < 1e-3:
                 v[2] = (v[2][0] + 3.0, v[2][1] + 5.0)
             co, z = _tile_triangle(rng, v, kind)
+        if band_row:  # a·x + b·(y - dy) + c: the triangle moved down by dy (a dead slot's e0 has b = 0)
+            co[:, 2] -= co[:, 1] * (band_row * tile)
         planes.append(co.astype(np.float32))
         tz.append(z)
     comb = _tile_comb(planes, np.asarray(tz, np.float32), rng)
-    n_tiles = -(-w // tr.TILE) * -(-h // tr.TILE)
+    tx = -(-w // tile)
+    n_tiles = tx * -(-h // tile)
     entries = np.full((n_tiles, k2), -1, np.int32)
     counts = np.zeros(n_tiles, np.int32)
     for t in range(n_tiles):
@@ -826,17 +857,20 @@ def seeded_tiles(seed, dev, k2=TILE_SEED_K2):
         entries[t, :n] = rows
         counts[t] = n
     entries, comb = torch.from_numpy(entries).to(dev), comb.to(dev)
-    return entries, comb, torch.from_numpy(counts).to(dev), tr.pack_tile_blocks(entries, comb)["near_r"], w, h
+    return (entries, comb, torch.from_numpy(counts).to(dev), tr.pack_tile_blocks(entries, comb)["near_r"], w, h,
+            tile, band_row * tx)
 
 
-def tie_tiles(full: bool, dev):
-    """One 64² tile, two rounds. Round 0: two flat triangles at z = 0.5 (slots
-    10 and 11) cover all of the tile but its bottom-right sub-tile; with
+def tie_tiles(full: bool, dev, tile=64):
+    """A 64² image, two rounds. Round 0: two flat triangles at z = 0.5 (slots
+    10 and 11) cover all of the image but its bottom-right 32² quarter; with
     `full`, a third (slot 12) covers that one too. Round 1: a triangle at the
-    same z (slot 5: a larger slot code) over part of the top-left sub-tile.
+    same z (slot 5: a larger slot code) over part of the top-left quarter.
     bits(0.5) has no bits under 127, so the round-1 triangle ties the masked
-    depth and wins wherever it is evaluated; the tile-wide early-out runs
-    round 1 unless the tile is full. On `dev`."""
+    depth and wins wherever it is evaluated; at 64² tiles (one tile, a quarter
+    a CTA) the tile-wide early-out runs round 1 unless the tile is full. At a
+    smaller `tile` every tile of the image gets the same list. On `dev`, as
+    (entries, comb, counts, near_r, width, height, tile, tile_base)."""
     import numpy as np
 
     from oxylus_tpu_torch.ops import raster3d as tr
@@ -848,13 +882,67 @@ def tie_tiles(full: bool, dev):
              [(4.0, 4.0), (24.0, 6.0), (8.0, 26.0)]]    # round 1, inside the top-left sub-tile
     planes = [_tile_triangle(rng, v, "tie")[0].astype(np.float32) for v in verts]
     comb = _tile_comb(planes, np.full(4, 0.5, np.float32), rng)
-    entries = torch.full((1, 128), -1, dtype=torch.int32)
-    entries[0, 10], entries[0, 11], entries[0, 64 + 5] = 0, 1, 3
+    n_tiles = (tr.TILE // tile) ** 2
+    entries = torch.full((n_tiles, 128), -1, dtype=torch.int32)
+    entries[:, 10], entries[:, 11], entries[:, 64 + 5] = 0, 1, 3
     if full:
-        entries[0, 12] = 2
+        entries[:, 12] = 2
     entries, comb = entries.to(dev), comb.to(dev)
     near_r = tr.pack_tile_blocks(entries, comb)["near_r"]
-    return entries, comb, torch.tensor([128], dtype=torch.int32, device=dev), near_r, tr.TILE, tr.TILE
+    counts = torch.full((n_tiles,), 128, dtype=torch.int32, device=dev)
+    return entries, comb, counts, near_r, tr.TILE, tr.TILE, tile, 0
+
+
+def tile_raster_vs_plain(dev, card: str, label: str, args) -> tuple:
+    """One tile raster call's inputs (`run_tiles`' arguments): the kernel exactly
+    against its plain version, timed (events and a CUDA graph) beside the plain
+    version and the bound from this input's work. Returns (max abs err, graph
+    ms, plain ms, bound, events ms, tile_work's counts)."""
+    from oxylus_tpu_torch import probes
+    from oxylus_tpu_torch.ops import raster3d
+
+    entries, comb, counts, near_r, w, h, *rest = args
+    tile, base = (rest + [raster3d.TILE, 0])[:2]
+    pix = tile * tile
+    got = raster3d.run_tiles(*args)
+    want_d, want_v, want_g, rounds_run, covered = raster3d._raster_tiles_plain(*args)
+    torch.cuda.synchronize()
+    d_err = (got[0] - want_d).abs().max().item()
+    g_err = (got[2].float() - want_g.float()).abs().max().item()
+    d_bits = int((got[0].view(torch.int32) != want_d.view(torch.int32)).sum())
+    vid_diff = int((got[1] != want_v).sum())
+    bits_diff = int((got[2].view(torch.int16) != want_g.view(torch.int16)).sum())
+    hit = got[1] >= 0
+    n_hit = int(hit.sum())
+    v = got[1][hit].long()
+    win_rows = torch.unique(entries[(v >> 8) - base, v & 255]).numel()
+    ref_rows = torch.unique(entries[entries >= 0]).numel()
+    ms = cuda_ms(lambda: raster3d.run_tiles(*args), 20)
+    graph_ms = probes.time_us(lambda: raster3d.run_tiles(*args), dev, GRAPH_REPS)[0] * 1e-3
+    plain = cuda_ms(lambda: raster3d._raster_tiles_plain(*args), 2)
+    rounds = int(rounds_run.sum())
+    real = int(torch.minimum(counts, rounds_run * raster3d.TILE_ROUND).sum())  # entries of the rounds run
+    n_cov = int(covered.sum())
+    work = raster3d.tile_work(entries, comb, rounds_run, w, tile, base)
+    n_bytes = (entries.numel() + counts.numel() + near_r.numel() + ref_rows * 15 + win_rows * 64) * 4 + w * h * 40
+    old_ops = real * pix * RASTER_OPS_ENTRY_PIXEL + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT
+    least_ops = (work["region_tests"] * RASTER_OPS_REGION_TEST
+                 + n_cov * (RASTER_OPS_ENTRY_PIXEL + RASTER_OPS_COVERED) + n_hit * RASTER_OPS_HIT)
+    bd = bound(n_bytes, least_ops)
+    print(f"[{label}] tile {tile}, tile_base {base}: {entries.shape[0]} tiles, {int(counts.sum())} entries, {rounds} "
+          f"rounds run over {real} entries ({work['real']} real), {n_cov} covered (entry, pixel) pairs, {n_hit} hit "
+          f"pixels: kernel vs plain depth err {d_err}, depth bit mismatches {d_bits}, gb err {g_err}, vid mismatches "
+          f"{vid_diff}, gb bit mismatches {bits_diff}; grid {work['clusters']} clusters of {work['cluster']} = "
+          f"{work['ctas']} CTAs; work: the first port's count {old_ops} operations ({real * pix} (entry, pixel) "
+          f"pairs), the least exact count {least_ops} ({work['region_tests']} region tests, {n_cov} covered "
+          f"pairs), the kernel evaluates {work['evaluated']} (entry, pixel) pairs; kernel {ms:.4f} ms (events, "
+          f"back to back), {graph_ms:.4f} ms (CUDA graph of {GRAPH_REPS}), plain {plain:.2f} ms, bound "
+          f"{bd[0]:.4f} ms ({bd[1]}; {n_bytes} bytes, {least_ops} operations; on the first port's count "
+          f"{bound(n_bytes, old_ops)[0]:.4f} ms) ({card})", flush=True)
+    check(d_bits == 0 and d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0,
+          f"{label}: kernel != plain")
+    check(work["evaluated"] < real * pix, f"{label}: the reject left every (entry, pixel) pair")
+    return max(d_err, g_err), graph_ms, plain, bd, ms, work
 
 
 def probe_phase(dev, card: str, other_mods) -> list[dict]:
@@ -2262,6 +2350,223 @@ def editor_phase(dev, card: str, every_mod, handoff: dict) -> dict:
     return launches
 
 
+def tiles_phase(dev, card: str, every_mod, per_frame_64: float) -> tuple[dict, list]:
+    """Phase 22, the tile raster route at 16- and 32-px tiles: kernel #4 bit-equal
+    to its plain version on seeded inputs at tiles 16 and 32, and at tiles 64 and
+    32 on a band (`tile_base` > 0); the config-5 frame at 1080p on the tile route
+    at 32- and 16-px tiles through `SceneRunner` (launch and drop gates), one
+    frame's early and late passes captured at every tile edge from a shared
+    state and carry, each held against the plain version and timed; the atrium
+    at `OX_TILE=32` through `bench.raster_env` (its gates, both passes held and
+    timed); `build_sprite_texture_tiles` on the card against the CPU. Returns
+    the kernels' launch counts over the driven frames and the timed passes'
+    rows (`per_frame_64`: the tile raster's launches per frame of phase 9's
+    config-5 runner, the 64-px rows' path)."""
+    import os
+
+    import numpy as np
+
+    from oxylus_tpu_torch import bench
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import blend2d, hiz, raster3d, raster_depth
+    from oxylus_tpu_torch.physics import megakernel_compact as mc
+    from oxylus_tpu_torch.render.camera import camera_from_state
+    from oxylus_tpu_torch.render.renderer3d import RendererInstance
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.sponza import build_sponza_scene
+
+    t_phase = time.perf_counter()
+    # ---- seeded inputs: tiles 16 and 32, and bands at 64 and 32
+    seeded = [(tile, f"seeded {s}", seeded_tiles(s, dev, tile=tile)) for tile in TILES_EDGES for s in range(3)]
+    seeded += [(tile, f"tie, full {f}", tie_tiles(f, dev, tile=tile)) for tile in TILES_EDGES for f in (False, True)]
+    seeded += [(tile, f"masked {s}", seeded_tiles(100 + s, dev, k2=128, tile=tile)) for tile in TILES_EDGES
+               for s in range(2)]
+    seeded += [(tile, f"band {s}", seeded_tiles(s, dev, tile=tile, band_row=2)) for tile in (64, 32) for s in range(2)]
+    for tile, name, args in seeded:
+        got, want = raster3d.run_tiles(*args), raster3d.rasterize_tiles_reference(*args)
+        diff = sum(int((g.view(dt) != r.view(dt)).sum())
+                   for g, r, dt in zip(got, want, (torch.int32, torch.int32, torch.int16)))
+        check(diff == 0, f"22: tile raster at tile {tile} on {name}: {diff} depth, vid or G-buffer bits differ")
+        check(bool((want[1] >= 0).any()), f"22: tile {tile} {name} covers no pixel")
+    bases = sorted({int(a[7]) for _, n, a in seeded if n.startswith("band")})
+    print(f"[22] tile raster on {len(seeded)} seeded inputs (tiles {TILES_EDGES}: seeded, tie and masked-pass "
+          f"inputs; bands at tiles 64 and 32, tile_base {bases}): depth, vid and G-buffer bits equal to the plain "
+          f"version", flush=True)
+    check(all(b > 0 for b in bases), "22: a band input with tile_base 0")
+
+    def tile_passes(runner, spec) -> list:
+        # one frame's passes at every tile edge from a shared state and a carry one frame old: a
+        # frame whose late pass runs, the first of up to 10 (the boxes keep falling)
+        cam_of = lambda: camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+        for _ in range(10):
+            prev = runner.carry
+            runner.step()
+            cam = cam_of()
+            passes = {}
+            for edge in (64,) + TILES_EDGES:
+                renderer = RendererInstance(dataclasses.replace(spec, tile=edge))
+                calls = []
+                with capture(raster3d, "run_tiles", calls):
+                    renderer.render(runner.state, runner.gscene, cam, runner.bindings.materials,
+                                    runner.bindings.atlas, runner.config, prev=prev, atmosphere=runner.atmosphere,
+                                    enable_shadows=runner.enable_shadows, static_lights=runner._static_lights)
+                passes[edge] = calls
+            if all(len(c) == 2 for c in passes.values()):
+                break
+        check(all(len(c) == 2 for c in passes.values()), f"22: no frame ran the late pass at every tile edge: "
+              f"{ {e: len(c) for e, c in passes.items()} }")
+        out = []
+        for edge, calls in passes.items():
+            for name, args in zip(("early", "late"), calls):
+                r = tile_raster_vs_plain(dev, card, f"22: config 5, tile {edge}, {name} pass K2={args[0].shape[1]}",
+                                         args)
+                out.append({"scene": "config 5", "tile": edge, "pass": name, "k2": args[0].shape[1], "row": r})
+        return out
+
+    # ---- the config-5 frame at 1080p on the tile route at each smaller tile edge
+    launches = collections.Counter()
+    gated_mods = (mc, raster3d, hiz, raster_depth)
+    rows = []
+    per_frame = {}
+    for tile in TILES_EDGES:
+        t0 = time.perf_counter()
+        scene, runner_kw = build_frame5_scene(WIDTH, HEIGHT, device=dev, raster={"tile": tile})
+        runner = SceneRunner(scene, **runner_kw)
+        spec = runner.renderer3d.spec
+        t_build = time.perf_counter() - t0
+        runner.run(MAIN_WARMUP)
+        for mod in every_mod:
+            mod.LAUNCHES = 0
+        counts, frames = [], []
+        t0 = time.perf_counter()
+        with capture(raster3d, "run_tiles", counts, keep=lambda args: args[2]):
+            for _ in range(TILES_FRAMES):
+                n0 = len(counts)
+                image = runner.step()
+                frames.append((runner.carry["bin_overflow"], n0))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+        launches.update(run)
+        per_frame[tile] = run[raster3d.__name__] / TILES_FRAMES
+        ends = [n0 for _, n0 in frames[1:]] + [len(counts)]
+        drops = []
+        for (dropped, n0), n1 in zip(frames, ends):
+            pairs = sum(int(c.sum()) for c in counts[n0:n1])
+            drops.append((int(dropped) / max(pairs + int(dropped), 1), int(dropped), pairs))
+        worst = max(drops)
+        carry = runner.carry
+        print(f"[22] config-5 runner at tile {tile} (tris_per_tile {spec.tris_per_tile}, bin_groups_per_tile "
+              f"{spec.bin_groups_per_tile}) built in {t_build:.2f} s; {TILES_FRAMES} frames at {WIDTH}x{HEIGHT} in "
+              f"{wall:.3f} s = {TILES_FRAMES / wall:.2f} frames/s ({card}); kernel launches {run}; tile raster "
+              f"launches per frame {per_frame[tile]}; binning drops worst {100 * worst[0]:.3f} % ({worst[1]} of "
+              f"{worst[1] + worst[2]} pairs); expand_overflow {int(carry['expand_overflow'])}", flush=True)
+        for mod in every_mod:
+            n = run[mod.__name__]
+            check(n > 0 if mod in gated_mods else n == 0,
+                  f"22: the tile-{tile} frames launched {mod.__name__} {n} times")
+        check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(image).all())
+              and image.min().item() >= 0.0 and image.max().item() <= 1.0, f"22: tile {tile}: image not finite or "
+              "outside [0, 1]")
+        check(int(carry["expand_overflow"]) == 0, f"22: tile {tile}: the meshlet expansion dropped work")
+        check(worst[0] <= BIN_DROP_GATE, f"22: tile {tile}: binning dropped {100 * worst[0]:.3f} % of a frame's pairs")
+
+        if tile == TILES_EDGES[0]:
+            rows += tile_passes(runner, spec)
+        del runner, scene, runner_kw
+        torch.cuda.empty_cache()
+    per_frame[64] = per_frame_64
+    for r in rows:
+        r["launches_per_frame"] = per_frame[r["tile"]]
+
+    # ---- the atrium at OX_TILE=32, as the bench reads it
+    saved = os.environ.get("OX_TILE")
+    os.environ["OX_TILE"] = "32"
+    try:
+        raster = bench.raster_env("sponza")
+    finally:
+        if saved is None:
+            os.environ.pop("OX_TILE")
+        else:
+            os.environ["OX_TILE"] = saved
+    cap_mult = raster.pop("cap_mult")
+    t0 = time.perf_counter()
+    scene, runner_kw, _ = build_sponza_scene(WIDTH, HEIGHT, device=dev, cap_mult=cap_mult, raster=raster)
+    runner = SceneRunner(scene, **runner_kw)
+    spec = runner.renderer3d.spec
+    print(f"[22] atrium at OX_TILE=32 (bench.raster_env: {raster}, cap_mult {cap_mult}) built in "
+          f"{time.perf_counter() - t0:.2f} s: {spec}", flush=True)
+    check(spec.tile == 32 and spec.raster_path == "tile" and runner._textured and runner._has_alpha_mask,
+          "22: the atrium runner is not on the textured, masked tile route at 32-px tiles")
+    for mod in every_mod:
+        mod.LAUNCHES = 0
+    tiles_k2, stats = [], []
+    with capture(raster3d, "run_tiles", tiles_k2, keep=lambda args: (args[0].shape[1], args[6])):
+        for i in range(MAIN_WARMUP + TILES_ATRIUM_FRAMES):
+            if i == MAIN_WARMUP:
+                n_warm = len(tiles_k2)  # the calls of the frames after the warm-up start here
+            stats.append((runner.step(), runner.frame_stats))
+        torch.cuda.synchronize()
+    run = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+    launches.update(run)
+    gates = [{k: int(v) for k, v in st.items()} for _, st in stats]
+    image = stats[-1][0]
+    print(f"[22] atrium, {MAIN_WARMUP} warm-up and {TILES_ATRIUM_FRAMES} frames: kernel launches {run}; tile raster "
+          f"(K2, tile) per call {tiles_k2}; overflow after the warm-up "
+          f"{[(g['expand_overflow'], g['bin_overflow']) for g in gates[MAIN_WARMUP - 1:]]}", flush=True)
+    for g in gates[MAIN_WARMUP - 1:]:
+        check(g["expand_overflow"] == 0 and g["bin_overflow"] == 0, f"22: an atrium frame dropped work: {g}")
+    check(all(t == 32 for _, t in tiles_k2) and {k for k, _ in tiles_k2} == {256, 128},
+          f"22: the atrium's tile raster calls {tiles_k2}")
+    for mod in every_mod:  # the atrium has no bodies: #1 stays idle
+        n = run[mod.__name__]
+        check(n > 0 if mod in (raster3d, hiz, raster_depth) else n == 0,
+              f"22: the atrium frames launched {mod.__name__} {n} times")
+    check(bool(torch.isfinite(image).all()) and image.min().item() >= 0.0
+          and image.max().item() <= 1.0 + FXAA_RANGE_ROUNDING, "22: atrium image not finite or outside [0, 1]")
+    calls = []
+    cam = camera_from_state(runner.state, runner._resolve_camera_idx(), WIDTH / HEIGHT)
+    prev = {k: v for k, v in runner.carry.items() if k != "shadow_cache"}
+    with capture(raster3d, "run_tiles", calls):
+        runner.renderer3d.render(
+            runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas, runner.config,
+            prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
+            textured=runner._textured, texture_features=runner._texture_features,
+            alpha_masked=runner._has_alpha_mask, static_lights=runner._static_lights)
+    names = ["opaque early", "opaque late", "masked"] if len(calls) == 3 else ["opaque", "masked"]
+    per_k2 = collections.Counter(k for k, _ in tiles_k2[n_warm:])  # the frames after the warm-up
+    for name, args in zip(names, calls):
+        r = tile_raster_vs_plain(dev, card, f"22: atrium at tile 32, {name} pass K2={args[0].shape[1]}", args)
+        rows.append({"scene": "atrium", "tile": 32, "pass": name, "k2": args[0].shape[1], "row": r,
+                     "launches_per_frame": per_k2[args[0].shape[1]] / TILES_ATRIUM_FRAMES})
+    del runner, scene, runner_kw, prev
+    torch.cuda.empty_cache()
+
+    # ---- build_sprite_texture_tiles on the card against the CPU
+    from oxylus_tpu_torch.assets.material import empty_gpu_materials
+
+    rng = np.random.default_rng(22)
+    s = TILES_SPRITES
+    lo = rng.uniform(-0.3, 0.9, (s, 2))
+    fields = {"uv_size": rng.uniform(0.1, 1.5, (s, 2)), "uv_offset": rng.uniform(-2.5, 1.5, (s, 2)),
+              "albedo_rect": np.concatenate([lo, lo + rng.uniform(0.02, 0.6, (s, 2))], 1)}
+    fields["uv_offset"][:8] = -1e-9
+    fields["albedo_rect"][8, 2] = 1e12
+    atlas = torch.from_numpy(rng.integers(0, 256, (512, 512, 4), dtype=np.uint8))
+    on_card, on_host = (dataclasses.replace(empty_gpu_materials(s, device=where),
+                                            **{k: torch.from_numpy(v.astype(np.float32)).to(where)
+                                               for k, v in fields.items()})
+                        for where in (dev, torch.device("cpu")))
+    got = blend2d.build_sprite_texture_tiles(on_card, atlas.to(dev))
+    want = blend2d.build_sprite_texture_tiles(on_host, atlas)
+    check(got.device == dev and tuple(got.shape) == (s, 16, 16, 4)
+          and torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+          "22: build_sprite_texture_tiles on the card differs from the CPU")
+    print(f"[22] build_sprite_texture_tiles: {s} sprites over a 512² atlas on the card, bit-equal to the CPU; "
+          f"phase 22 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches), rows
+
+
 def main() -> int:
     # ---- 1. set-up ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2498,53 +2803,7 @@ def main() -> int:
             break
     from oxylus_tpu_torch import probes
 
-    def raster_vs_plain(label, args):
-        """One captured tile raster call: the kernel exactly against its plain
-        version, timed (events and a CUDA graph) beside the plain version and
-        the bound from this input's work. Returns (max abs err, graph ms,
-        plain ms, bound)."""
-        entries, comb, counts, near_r, w, h = args
-        got = raster3d.run_tiles(*args)
-        want_d, want_v, want_g, rounds_run, covered = raster3d._raster_tiles_plain(*args)
-        torch.cuda.synchronize()
-        d_err = (got[0] - want_d).abs().max().item()
-        g_err = (got[2].float() - want_g.float()).abs().max().item()
-        d_bits = int((got[0].view(torch.int32) != want_d.view(torch.int32)).sum())
-        vid_diff = int((got[1] != want_v).sum())
-        bits_diff = int((got[2].view(torch.int16) != want_g.view(torch.int16)).sum())
-        hit = got[1] >= 0
-        n_hit = int(hit.sum())
-        v = got[1][hit].long()
-        win_rows = torch.unique(entries[v >> 8, v & 255]).numel()
-        ref_rows = torch.unique(entries[entries >= 0]).numel()
-        ms = cuda_ms(lambda: raster3d.run_tiles(*args), 20)
-        graph_ms = probes.time_us(lambda: raster3d.run_tiles(*args), dev, GRAPH_REPS)[0] * 1e-3
-        plain = cuda_ms(lambda: raster3d._raster_tiles_plain(*args), 2)
-        rounds = int(rounds_run.sum())
-        real = int(torch.minimum(counts, rounds_run * raster3d.TILE_ROUND).sum())  # entries of the rounds run
-        n_cov = int(covered.sum())
-        work = raster3d.tile_work(entries, comb, rounds_run, w)
-        n_bytes = (entries.numel() + counts.numel() + near_r.numel() + ref_rows * 15 + win_rows * 64) * 4 + w * h * 40
-        old_ops = real * 4096 * RASTER_OPS_ENTRY_PIXEL + n_cov * RASTER_OPS_COVERED + n_hit * RASTER_OPS_HIT
-        least_ops = (work["region_tests"] * RASTER_OPS_REGION_TEST
-                     + n_cov * (RASTER_OPS_ENTRY_PIXEL + RASTER_OPS_COVERED) + n_hit * RASTER_OPS_HIT)
-        bd = bound(n_bytes, least_ops)
-        print(f"[{label}] {entries.shape[0]} tiles, {int(counts.sum())} entries, {rounds} rounds run over {real} "
-              f"entries ({work['real']} real), {n_cov} covered (entry, pixel) pairs, {n_hit} hit pixels: kernel vs "
-              f"plain depth err {d_err}, depth bit mismatches {d_bits}, gb err {g_err}, vid mismatches {vid_diff}, "
-              f"gb bit mismatches {bits_diff}; grid {work['clusters']} clusters of {raster3d.CLUSTER} = "
-              f"{work['ctas']} CTAs; work: the first port's count {old_ops} operations ({real * 4096} (entry, pixel) "
-              f"pairs), the least exact count {least_ops} ({work['region_tests']} region tests, {n_cov} covered "
-              f"pairs), the kernel evaluates {work['evaluated']} (entry, pixel) pairs; kernel {ms:.4f} ms (events, "
-              f"back to back), {graph_ms:.4f} ms (CUDA graph of {GRAPH_REPS}), plain {plain:.2f} ms, bound "
-              f"{bd[0]:.4f} ms ({bd[1]}; {n_bytes} bytes, {least_ops} operations; on the first port's count "
-              f"{bound(n_bytes, old_ops)[0]:.4f} ms) ({card})", flush=True)
-        check(d_bits == 0 and d_err == 0 and g_err == 0 and vid_diff == 0 and bits_diff == 0,
-              f"{label}: kernel != plain")
-        check(work["evaluated"] < real * 4096, f"{label}: the reject left every (entry, pixel) pair")
-        return max(d_err, g_err), graph_ms, plain, bd
-
-    raster_rows = [raster_vs_plain(f"5: raster K2={args[0].shape[1]}", args) for args in raster_calls]
+    raster_rows = [tile_raster_vs_plain(dev, card, f"5: raster K2={args[0].shape[1]}", args) for args in raster_calls]
     check(len(raster_rows) >= 1, "no raster call captured")
     # Seeded inputs the captured frame may lack: slivers on sub-tile borders, single-corner covers,
     # ties, missing entries, early-outs (`seeded_tiles`), and a tile whose tile-wide early-out
@@ -3504,7 +3763,8 @@ def main() -> int:
     # the frame's tile raster passes (opaque early, late, masked) held exactly
     # and timed; then seeded masked-pass inputs (K2 128)
     names = ["opaque early", "opaque late", "masked"] if len(sponza_calls) == 3 else ["opaque", "masked"]
-    sponza_rows = [raster_vs_plain(f"15: sponza {n} pass K2={a[0].shape[1]}", a) for n, a in zip(names, sponza_calls)]
+    sponza_rows = [tile_raster_vs_plain(dev, card, f"15: sponza {n} pass K2={a[0].shape[1]}", a)
+                   for n, a in zip(names, sponza_calls)]
     check(sponza_calls[-1][0].shape[1] == 128, "the sponza masked pass is not K2 128")
     # each pass's launches per gated frame: a frame's first tile raster call is
     # its opaque (early) pass, its last the masked pass, any between the late pass
@@ -3727,13 +3987,18 @@ def main() -> int:
     editor_launches = editor_phase(dev, card, every_mod, handoff)
     handoff["tmp"].cleanup()
 
+    # ---- 22. the tile raster route at 16- and 32-px tiles: config 5, the atrium, bands, sprite tiles ----
+    tiles_launches, tiles_rows = tiles_phase(dev, card, every_mod, full_launches[raster3d.__name__] / MAIN_FRAMES)
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
         # path's timed frames), 18 (the atrium's group-route frames), 19 (the App's frames), 20
-        # (the roster's frames) and 21 (the editor's edit and play frames and config 2's id image)
+        # (the roster's frames), 21 (the editor's edit and play frames and config 2's id image) and
+        # 22 (the config-5 frames at tiles 16 and 32 and the atrium's at 32)
         paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
                  "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__],
-                 "roster_20": roster_launches[mod.__name__], "editor_21": editor_launches[mod.__name__]}
+                 "roster_20": roster_launches[mod.__name__], "editor_21": editor_launches[mod.__name__],
+                 "tiles_22": tiles_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}
@@ -3744,12 +4009,18 @@ def main() -> int:
             "oxylus_tpu/physics/megakernel_compact.py:75", mc, compact_err, compact_ms, compact_plain_ms,
             compact_bound),
         dict(row("raster_tiles", "oxylus_tpu_torch/ops/csrc/raster_tiles.cu", "oxylus_tpu/ops/raster3d.py:936",
-                 raster3d, max(r[0] for r in raster_rows + sponza_rows), early[1], early[2], early[3]),
+                 raster3d, max(r[0] for r in raster_rows + sponza_rows + [t["row"] for t in tiles_rows]), early[1],
+                 early[2], early[3]),
              sponza_passes=[{"pass": n, "k2": a[0].shape[1],
                              "launches_per_frame": pass_launches[n] / len(gated), "max_abs_err": r[0], "ms": r[1],
                              "plain_ms": r[2],
                              "bound_ms": r[3][0], "bound_by": r[3][1]}
-                            for n, a, r in zip(names, sponza_calls, sponza_rows)]),
+                            for n, a, r in zip(names, sponza_calls, sponza_rows)],
+             tile_passes=[{"scene": t["scene"], "tile": t["tile"], "pass": t["pass"], "k2": t["k2"],
+                           "ctas": t["row"][5]["ctas"], "launches_per_frame": t["launches_per_frame"],
+                           "max_abs_err": t["row"][0], "ms": t["row"][1], "events_ms": t["row"][4],
+                           "plain_ms": t["row"][2], "bound_ms": t["row"][3][0], "bound_by": t["row"][3][1]}
+                          for t in tiles_rows]),
         dict(row("hiz_build", "oxylus_tpu_torch/ops/csrc/hiz.cu", "oxylus_tpu/ops/hiz.py:103", hiz_ops, hiz_err,
                  hiz_graph_ms, hiz_plain_ms, hiz_bound),
              sponza={"launches_per_frame": sp_hiz_per_frame, "max_abs_err": sp_hiz_err, "ms": sp_hiz_ms,

@@ -105,7 +105,7 @@ def load_kernel_library() -> ctypes.CDLL:
         lib.banded_substeps.restype = ci
         lib.kernel_error_string.argtypes = [ci]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        lib.raster_tiles.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.raster_tiles.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.raster_tiles.restype = ci
         lib.hiz_build.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.hiz_build.restype = ci

@@ -53,8 +53,8 @@ The environment sets the frame cells' raster knobs as `bench.py` reads them
 `OX_MPT` (`bench.py:336-340`), `frame5` `OX_COMPACT`, `OX_K2` and `OX_BG`
 (`:414-416`), `sponza` `OX_CAP_MULT`, `OX_RASTER_GROUP`, `OX_TILE`, `OX_MPT`,
 `OX_K2` and `OX_BG` (`:594-610`), each with `bench.py`'s default. A value the
-port cannot run is refused with the variable's name: `OX_TILE` other than 64
-(the tile route takes 64-px tiles), `OX_K2` other than a multiple of 64 up to
+port cannot run is refused with the variable's name: `OX_TILE` other than 16,
+32 or 64 (`raster3d.TILES`), `OX_K2` other than a multiple of 64 up to
 256, a count below 1, a value that is not a number. `OX_BENCH_REBAKE=1` asks
 `bench.py` to rebuild its cached atrium; the port caches nothing and builds it
 every run.
@@ -248,9 +248,9 @@ def raster_env(cell: str) -> dict:
             out[field] = os.environ.get(name, "0") == "1"
         else:
             out[field] = _env_number(name, defaults[name], float if name == "OX_CAP_MULT" else int)
-    if "tile" in out and out["tile"] != raster3d.TILE:
-        raise NotImplementedError(f"OX_TILE={out['tile']}: the tile raster route takes {raster3d.TILE}-px tiles; "
-                                  "other tiles are not ported yet")
+    if "tile" in out and out["tile"] not in raster3d.TILES:
+        raise ValueError(f"OX_TILE={out['tile']}: the tile raster route takes tiles of "
+                         f"{', '.join(map(str, raster3d.TILES))} px")
     k2 = out["tris_per_tile"]
     if k2 % raster3d.TILE_ROUND or k2 > raster3d.MAX_K2:
         raise ValueError(f"OX_K2={k2}: the tile raster takes a multiple of {raster3d.TILE_ROUND} up to "

@@ -1,6 +1,7 @@
 """Ordered alpha blend of sorted sprites over 32×32 screen tiles (counterpart of
 `oxylus_tpu/ops/raster2d_pallas.py`: `blend_tiles_pallas`, its kernels
-`_blend_kernel` / `_blend_kernel_depth`, and `resample_texture_tiles`).
+`_blend_kernel` / `_blend_kernel_depth`, `resample_texture_tiles` and
+`build_sprite_texture_tiles`).
 
 Per tile, the first `cnt` entries of the tile's sprite list (`cnt` = the
 number of entries ≥ 0; lists are a valid prefix), in order, each blended
@@ -45,6 +46,8 @@ rule needs the texel planes finite, below 2^125 in magnitude, as
 from __future__ import annotations
 
 import torch
+
+from ..render.debugdraw import to_int32_saturating
 
 Tensor = torch.Tensor
 
@@ -383,3 +386,32 @@ def resample_texture_tiles(packed_prefix: Tensor, atlas: Tensor) -> Tensor:
     ix = torch.clamp(ax.to(torch.int32), 0, a - 1).long()  # (S, TEX) column indices
     iy = torch.clamp(ay.to(torch.int32), 0, a - 1).long()  # (S, TEX) row indices
     return atlas[iy[:, :, None], ix[:, None, :]].to(torch.float32) / 255.0
+
+
+def _mod1(x: Tensor) -> Tensor:
+    """`jnp.mod(x, 1.0)` as XLA computes it: the truncated remainder, plus 1
+    where it is negative (so a value just below 0 rounds to 1.0)."""
+    r = torch.fmod(x, 1.0)
+    return torch.where((r != 0) & (r < 0), r + 1.0, r)
+
+
+def build_sprite_texture_tiles(materials, atlas: Tensor) -> Tensor:
+    """(S, 16, 16, 4) f32 texel tiles, one per row of `materials` (per-sprite
+    material views, whose uv_size / uv_offset carry the animated window):
+    the nearest atlas texel at a 16×16 grid of each sprite's texture window
+    (uv grid → material uv transform, wrapped into [0, 1) → albedo rect), in
+    one gather over `atlas` (A, A, 4) u8, on its device. The rect coordinates
+    are cast to int32 saturating, as XLA casts them. The divisors are scalars
+    on the atlas's device: CUDA divides by a CPU scalar as a product with its
+    reciprocal, an ulp off the CPU's (and XLA's) division."""
+    a = atlas.shape[0]
+    dev = atlas.device
+    us = torch.arange(TEX, dtype=torch.float32, device=dev) / torch.full((), TEX - 1.0, device=dev)
+    uv_size, uv_offset, rect = materials.uv_size, materials.uv_offset, materials.albedo_rect
+    uu = _mod1(uv_offset[:, None, None, 0] + us[None, None, :] * uv_size[:, None, None, 0])  # (S, 1, TEX)
+    vv = _mod1(uv_offset[:, None, None, 1] + us[None, :, None] * uv_size[:, None, None, 1])  # (S, TEX, 1)
+    ax = (rect[:, None, None, 0] + uu * (rect[:, None, None, 2] - rect[:, None, None, 0])) * a
+    ay = (rect[:, None, None, 1] + vv * (rect[:, None, None, 3] - rect[:, None, None, 1])) * a
+    ix = torch.clamp(to_int32_saturating(ax), 0, a - 1).long()
+    iy = torch.clamp(to_int32_saturating(ay), 0, a - 1).long()
+    return atlas[iy, ix].to(torch.float32) / torch.full((), 255.0, device=dev)

@@ -2,7 +2,7 @@
 // built on it, shared by raster_depth.cu and raster_tiles.cu. Both kernels
 // evaluate a plane the same way: a, b and the tile-local constant
 // c' = (c + x0*a) + y0*b, each split into bf16 hi and lo parts, summed at
-// tile-local centres k + 0.5 (k < 64) in the TPU kernel's order.
+// tile-local centres k + 0.5 (k < tile <= 64) in the TPU kernel's order.
 
 #pragma once
 
@@ -22,8 +22,8 @@ static __device__ __forceinline__ float plane(float ah, float bh, float ch, floa
 
 // The reject's margin. Five rounded additions of six terms err by at most
 // g5 * T with g5 = 5u / (1 - 5u), u = 2^-24, and T the sum of the terms'
-// magnitudes, here bounded over the whole tile (x, y <= 63.5):
-// T = (|ah| + |al| + |bh| + |bl|) * 63.5 + |ch| + |cl|. With E the exact
+// magnitudes, here bounded over the whole tile (x, y <= span = tile - 0.5):
+// T = (|ah| + |al| + |bh| + |bl|) * span + |ch| + |cl|. With E the exact
 // affine function of the six parts, a centre p of a region and its corner
 // centres c: e(p) <= E(p) + g5*T <= max_c E(c) + g5*T <= max_c e(c) + 2*g5*T,
 // since an affine function takes its largest value over a rectangle at a
@@ -31,9 +31,11 @@ static __device__ __forceinline__ float plane(float ah, float bh, float ch, floa
 // 2^-20 * T = 16u * T exceeds 2*g5*T = 10u/(1 - 5u) * T with room for the
 // rounding of T itself (a few u); the added 2^-126 covers what underflow can
 // lose (at most 2^-150 per operation, 11 operations per evaluation). An
-// infinite or NaN margin rejects nothing.
-static __device__ __forceinline__ float reject_margin(float ah, float al, float bh, float bl, float ch, float cl) {
-  return ((fabsf(ah) + fabsf(al) + fabsf(bh) + fabsf(bl)) * 63.5f + fabsf(ch) + fabsf(cl)) * 0x1p-20f + 0x1p-126f;
+// infinite or NaN margin rejects nothing. The default span is a 64-px
+// tile's, which bounds the terms of any smaller tile too.
+static __device__ __forceinline__ float reject_margin(float ah, float al, float bh, float bl, float ch, float cl,
+                                                      float span = 63.5f) {
+  return ((fabsf(ah) + fabsf(al) + fabsf(bh) + fabsf(bl)) * span + fabsf(ch) + fabsf(cl)) * 0x1p-20f + 0x1p-126f;
 }
 
 // The reject test of one plane at a rectangle's four corner centres: e0 e1 e2

@@ -1,13 +1,17 @@
 """Tile G-buffer raster (counterpart of the tile path of `oxylus_tpu/ops/raster3d.py`).
 
-Per 64×64 tile, the triangles binned to it (`setup3d.bin_triangles_per_tile`)
-are resolved in rounds of 64 entries, front to back: five plane evaluations per
-entry and pixel (edges e0 e1 e2, depth numerator zn, w denominator wd), a cover
+Per tile of `tile`² pixels (`TILES`: 16, 32 or 64), the triangles binned to it
+(`setup3d.bin_triangles_per_tile`) are resolved in rounds of 64 entries, front
+to back: five plane evaluations per entry and pixel (edges e0 e1 e2, depth
+numerator zn, w denominator wd), a cover
 test, and a reverse-Z max over a packed key (z bits & ~127) | (127 − slot), with
 an early-out once every pixel of the tile is nearer than anything the
 remaining rounds can hold. Then the winner's 16 G-buffer lanes are evaluated
 per pixel. vid = tile·256 + entry, so `flat = (vid >> 8)·K2 + (vid & 255)`
-indexes the per-(tile, entry) slot tables.
+indexes the per-(tile, entry) slot tables. With `tile_base` the call rasters a
+band of a larger image: its tile t is the image's tile t + tile_base, whose
+coordinates place the planes and the attributes and whose id goes into vid,
+while the outputs hold the band alone (the JAX signature's band sharding).
 
 `rasterize_gbuffer_tiles` is the wrapper: for CPU tensors it runs the plain
 PyTorch version `rasterize_tiles_reference`; for CUDA tensors the hand-written
@@ -29,11 +33,13 @@ The kernel's input is the shared per-slot row matrix `comb` from
 `pack_tile_blocks` gathers only the slot tables and the per-round nearest-z
 table, not the TPU kernel's per-(tile, round) plane blocks.
 
-The kernel runs a tile as a cluster of CLUSTER CTAs, one per SUB² sub-tile,
-which take the early-out together (tile-wide, round by round), and skips a
-slot in a sub-tile, then in each warp's WARP_W × WARP_H block, only where a
-plane proves it covers no pixel centre there (`tile_region_reject`,
-`tile_warp_reject`; the test the depth raster uses, `plane_region_reject`).
+The kernel runs a 64² tile as a cluster of 4 CTAs, one per SUB² sub-tile,
+which take the early-out together (tile-wide, round by round); a 32² or 16²
+tile is one CTA (`cta_side`, `cluster_size`). It skips a slot in a CTA's
+square, then in each warp's WARP_W × WARP_H block, only where a plane proves
+it covers no pixel centre there (`tile_region_reject`, `tile_warp_reject`; the
+test the depth raster uses, `plane_region_reject`, with the margin's span the
+tile's, `tile - 0.5`).
 `tile_work` counts what that rule evaluates. The main path does not call
 them: they are plain mirrors of the kernel's rules for the tests
 (`tests/test_torch_raster_tiles_reject.py`) and `chip_smoke.py`.
@@ -55,23 +61,48 @@ import torch
 Tensor = torch.Tensor
 
 TILE = 64
+TILES = (16, 32, 64)  # tile edges the tile raster takes
 TILE_ROUND = 64   # entries resolved per round
 MAX_K2 = 256      # entries per tile at most: vid's entry field is 8 bits
 N_GB_ATTR = 16    # G-buffer lanes: [nrm xyz, uv, tangent xyz, alb rgb, metallic, roughness, emissive rgb]
 ATTR_W = 64       # per-slot attribute row: [a(16) | b(16) | c(16) | consts(16)]
 COMB_W = ATTR_W + 15 + 4  # comb row: attrB 64 | coeffs 15 | tz | material | instance | packed id
 PLANE_OFF = ATTR_W       # the 15 plane coefficients, plane-major (e0 e1 e2 zn wd) × (a b c)
-TILES_PER_CHUNK = 16     # plain version: tiles evaluated together
+TILES_PER_CHUNK = 16     # plain version: 64² tiles evaluated together (more of a smaller tile)
 N_DEPTH_PLANES = 5       # rasterize_reference's planes: e0 e1 e2 | zn wd
 REF_CHUNK_BYTES = 1 << 29  # rasterize_reference: the largest temporary of one chunk of tiles
-SUB = 32                 # the kernel's sub-tile side: one CTA of the tile's cluster each
-CLUSTER = (TILE // SUB) ** 2
-WARP_W, WARP_H = 16, 8   # a warp's block of the sub-tile
-# the reject's margin: 2^-20 of the plane terms' magnitudes over the tile, plus
+SUB = 32                 # the kernel's sub-tile side: one CTA of a 64² tile's cluster each
+WARP_W, WARP_H = 16, 8   # a warp's block of the CTA's square
+# the reject's margin: 2^-20 of the plane terms' magnitudes over the tile (the
+# pixel coordinates bounded by the tile's last centre, tile - 0.5), plus
 # 2^-126 for underflow (the bound is derived in csrc/plane_reject.cuh)
-REJECT_MARGIN_SCALE, REJECT_MARGIN_FLOOR, REJECT_SPAN = 2.0**-20, 2.0**-126, TILE - 0.5
+REJECT_MARGIN_SCALE, REJECT_MARGIN_FLOOR = 2.0**-20, 2.0**-126
 
 LAUNCHES = 0
+
+
+def check_tile(tile: int) -> None:
+    """Raise `ValueError` for a tile edge the tile raster does not take."""
+    if tile not in TILES:
+        raise ValueError(f"tile={tile}: the tile raster takes tiles of {', '.join(map(str, TILES))} px")
+
+
+def cta_side(tile: int) -> int:
+    """The side of the square one CTA of the kernel rasters: a 32² sub-tile of
+    a 64² tile's cluster, else the whole tile."""
+    return min(tile, SUB)
+
+
+def cluster_size(tile: int) -> int:
+    """CTAs per tile: 4 (a thread-block cluster) at 64, else 1."""
+    return (tile // cta_side(tile)) ** 2
+
+
+def _tile_origins(tiles: Tensor, tile: int, width: int) -> tuple[Tensor, Tensor]:
+    """Float32 pixel origins (x0, y0) of the image's tiles `tiles` (global ids)."""
+    tx = (width + tile - 1) // tile
+    x0 = (tiles % tx) * tile
+    return x0.to(torch.float32), (torch.div(tiles, tx, rounding_mode="floor") * tile).to(torch.float32)
 
 
 def pack_gbuffer_coeff_matrix(attr_planes: Tensor, mat_consts: Tensor) -> Tensor:
@@ -152,9 +183,9 @@ def pack_tile_blocks(entries: Tensor, comb: Tensor) -> dict:
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _tile_local_pixels(device) -> tuple[Tensor, Tensor]:
-    lin = torch.arange(TILE * TILE, device=device)
-    return (lin % TILE).to(torch.float32) + 0.5, torch.div(lin, TILE, rounding_mode="floor").to(torch.float32) + 0.5
+def _tile_local_pixels(device, tile: int = TILE) -> tuple[Tensor, Tensor]:
+    lin = torch.arange(tile * tile, device=device)
+    return (lin % tile).to(torch.float32) + 0.5, torch.div(lin, tile, rounding_mode="floor").to(torch.float32) + 0.5
 
 
 def _split_hilo(x: Tensor) -> tuple[Tensor, Tensor]:
@@ -163,32 +194,36 @@ def _split_hilo(x: Tensor) -> tuple[Tensor, Tensor]:
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
-def _raster_tiles_plain(entries: Tensor, comb: Tensor, counts: Tensor, near_r: Tensor, width: int, height: int):
-    """Plain version, vectorised over (tiles, 64 entries, 4096 pixels) in chunks
-    of TILES_PER_CHUNK tiles, in the kernel's operation order. Returns
-    (depth, vid, gb, rounds_run (T,) i32, covered (T,) i64), the last two the
-    rounds each tile ran and the covered (entry, pixel) pairs in them, which
-    measure the work this input needs."""
+def _raster_tiles_plain(entries: Tensor, comb: Tensor, counts: Tensor, near_r: Tensor, width: int, height: int,
+                        tile: int = TILE, tile_base: int = 0):
+    """Plain version, vectorised over (tiles, 64 entries, tile² pixels) in
+    chunks of tiles, in the kernel's operation order. Tile t of the input is
+    tile t + `tile_base` of the image: its planes and attributes use that
+    tile's pixel coordinates and vid its id. Returns (depth, vid, gb,
+    rounds_run (T,) i32, covered (T,) i64), the last two the rounds each tile
+    ran and the covered (entry, pixel) pairs in them, which measure the work
+    this input needs."""
     dev = entries.device
     t_n, k2 = entries.shape
     rounds = k2 // TILE_ROUND
-    tx = (width + TILE - 1) // TILE
-    ty = (height + TILE - 1) // TILE
-    xl, yl = _tile_local_pixels(dev)
+    pix = tile * tile
+    tx = (width + tile - 1) // tile
+    ty = (height + tile - 1) // tile
+    xl, yl = _tile_local_pixels(dev, tile)
     slot_code = (127 - torch.arange(TILE_ROUND, dtype=torch.int32, device=dev))[None, :, None]
-    depth_t = torch.empty((t_n, TILE * TILE), dtype=torch.float32, device=dev)
-    vid_t = torch.empty((t_n, TILE * TILE), dtype=torch.int32, device=dev)
-    gb_t = torch.empty((t_n, TILE * TILE, N_GB_ATTR), dtype=torch.bfloat16, device=dev)
+    depth_t = torch.empty((t_n, pix), dtype=torch.float32, device=dev)
+    vid_t = torch.empty((t_n, pix), dtype=torch.int32, device=dev)
+    gb_t = torch.empty((t_n, pix, N_GB_ATTR), dtype=torch.bfloat16, device=dev)
     rounds_run = torch.zeros(t_n, dtype=torch.int32, device=dev)
     covered = torch.zeros(t_n, dtype=torch.int64, device=dev)
-    for c0 in range(0, t_n, TILES_PER_CHUNK):
-        c1 = min(c0 + TILES_PER_CHUNK, t_n)
-        tg = torch.arange(c0, c1, device=dev)
-        x0 = ((tg % tx) * TILE).to(torch.float32)[:, None, None]
-        y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None, None]
+    chunk = TILES_PER_CHUNK * (TILE * TILE // pix)
+    for c0 in range(0, t_n, chunk):
+        c1 = min(c0 + chunk, t_n)
+        tg = torch.arange(c0, c1, device=dev) + tile_base  # the image's tile ids
+        x0, y0 = (o[:, None, None] for o in _tile_origins(tg, tile, width))
         rounds_n = torch.div(counts[c0:c1] + TILE_ROUND - 1, TILE_ROUND, rounding_mode="floor")
-        key = torch.zeros((c1 - c0, TILE * TILE), dtype=torch.int32, device=dev)
-        vid = torch.full((c1 - c0, TILE * TILE), -1, dtype=torch.int32, device=dev)
+        key = torch.zeros((c1 - c0, pix), dtype=torch.int32, device=dev)
+        vid = torch.full((c1 - c0, pix), -1, dtype=torch.int32, device=dev)
         active = torch.ones(c1 - c0, dtype=torch.bool, device=dev)
         for r0 in range(rounds):
             dmin = key.min(1).values & ~127
@@ -233,30 +268,30 @@ def _raster_tiles_plain(entries: Tensor, comb: Tensor, counts: Tensor, near_r: T
         gb_t[c0:c1, :, 8:16] = attr[..., 48:56].to(torch.bfloat16)
 
     def untile(a):
-        a = a.reshape(ty, tx, TILE, TILE, *a.shape[2:]).transpose(1, 2)
-        return a.reshape(ty * TILE, tx * TILE, *a.shape[4:])[:height, :width].contiguous()
+        a = a.reshape(ty, tx, tile, tile, *a.shape[2:]).transpose(1, 2)
+        return a.reshape(ty * tile, tx * tile, *a.shape[4:])[:height, :width].contiguous()
 
     return untile(depth_t), untile(vid_t), untile(gb_t), rounds_run, covered
 
 
-def rasterize_tiles_reference(entries, comb, counts, near_r, width, height):
+def rasterize_tiles_reference(entries, comb, counts, near_r, width, height, tile=TILE, tile_base=0):
     """The plain PyTorch version of the CUDA kernel: (depth, vid, gb)."""
-    return _raster_tiles_plain(entries, comb, counts, near_r, width, height)[:3]
+    return _raster_tiles_plain(entries, comb, counts, near_r, width, height, tile, tile_base)[:3]
 
 
-def plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw: int, rh: int) -> Tensor:
+def plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw: int, rh: int, tile: int = TILE) -> Tensor:
     """The kernels' reject test of planes given by their hi/lo parts (each
-    (...,), tile-local constant), over the rw × rh regions of a tile: (...,
-    TILE // rh, TILE // rw) bool, True where the plane, evaluated as the pixels
-    evaluate it at the region's four corner centres, is below -margin at all
-    four (e0, e1, e2, zn), or at or below it where `is_wd`, with margin =
-    ((|a_h| + |a_l| + |b_h| + |b_l|) · 63.5 + |c'_h| + |c'_l|) · 2^-20 + 2^-126
-    finite."""
-    margin = (((((ah.abs() + al.abs()) + bh.abs()) + bl.abs()) * REJECT_SPAN + ch.abs()) + cl.abs()) \
+    (...,), tile-local constant), over the rw × rh regions of a tile of
+    `tile`² pixels: (..., tile // rh, tile // rw) bool, True where the plane,
+    evaluated as the pixels evaluate it at the region's four corner centres,
+    is below -margin at all four (e0, e1, e2, zn), or at or below it where
+    `is_wd`, with margin = ((|a_h| + |a_l| + |b_h| + |b_l|) · (tile - 0.5) +
+    |c'_h| + |c'_l|) · 2^-20 + 2^-126 finite."""
+    margin = (((((ah.abs() + al.abs()) + bh.abs()) + bl.abs()) * (tile - 0.5) + ch.abs()) + cl.abs()) \
         * REJECT_MARGIN_SCALE + REJECT_MARGIN_FLOOR
     dev = ah.device
-    lo_x = torch.arange(TILE // rw, dtype=torch.float32, device=dev) * rw + 0.5
-    lo_y = torch.arange(TILE // rh, dtype=torch.float32, device=dev)[:, None] * rh + 0.5
+    lo_x = torch.arange(tile // rw, dtype=torch.float32, device=dev) * rw + 0.5
+    lo_y = torch.arange(tile // rh, dtype=torch.float32, device=dev)[:, None] * rh + 0.5
     ex = lambda v: v[..., None, None]
     ah, al, bh, bl, ch, cl, mg = map(ex, (ah, al, bh, bl, ch, cl, -margin))
     below = at_or_below = None
@@ -269,18 +304,16 @@ def plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw: int, rh: int) -> Tens
     return torch.where(ex(is_wd), at_or_below, below) & torch.isfinite(mg)
 
 
-def tile_region_reject(entries: Tensor, comb: Tensor, width: int, rw: int, rh: int) -> Tensor:
+def tile_region_reject(entries: Tensor, comb: Tensor, width: int, rw: int, rh: int, tile: int = TILE,
+                       tile_base: int = 0) -> Tensor:
     """The tile raster's reject over the rw × rh regions of each tile: (tiles,
-    K2, TILE // rh, TILE // rw) bool, True where a plane of entry k's slot (a
+    K2, tile // rh, tile // rw) bool, True where a plane of entry k's slot (a
     missing entry: a = b = 0 and e0's constant -1e30, as the kernel stages it)
     proves, by `plane_region_reject`, that it covers no pixel centre of the
     region."""
     dev = entries.device
     t_n, k2 = entries.shape
-    tx = (width + TILE - 1) // TILE
-    tg = torch.arange(t_n, device=dev)
-    x0 = ((tg % tx) * TILE).to(torch.float32)[:, None, None]
-    y0 = (torch.div(tg, tx, rounding_mode="floor") * TILE).to(torch.float32)[:, None, None]
+    x0, y0 = (o[:, None, None] for o in _tile_origins(torch.arange(t_n, device=dev) + tile_base, tile, width))
     have = (entries >= 0)[..., None]
     co = comb[torch.clamp(entries, min=0).long(), PLANE_OFF : PLANE_OFF + 15]
     co = torch.where(have, co, 0.0).reshape(t_n, k2, 5, 3)
@@ -289,40 +322,43 @@ def tile_region_reject(entries: Tensor, comb: Tensor, width: int, rw: int, rh: i
     cp = (c + x0 * a) + y0 * b
     (ah, al), (bh, bl), (ch, cl) = (_split_hilo(v) for v in (a, b, cp))
     is_wd = torch.arange(5, device=dev) == 4
-    return plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw, rh).any(2)
+    return plane_region_reject(ah, al, bh, bl, ch, cl, is_wd, rw, rh, tile).any(2)
 
 
-def tile_warp_reject(entries: Tensor, comb: Tensor, width: int) -> Tensor:
-    """The slots each warp of the tile raster skips: (tiles, K2, TILE // WARP_H,
-    TILE // WARP_W) bool over the tile's WARP_W × WARP_H blocks, one per warp:
-    what its sub-tile's reject skips and what the same test at its own block's
-    corners does."""
-    sub = tile_region_reject(entries, comb, width, SUB, SUB)
-    sub = sub.repeat_interleave(SUB // WARP_H, 2).repeat_interleave(SUB // WARP_W, 3)
-    return sub | tile_region_reject(entries, comb, width, WARP_W, WARP_H)
+def tile_warp_reject(entries: Tensor, comb: Tensor, width: int, tile: int = TILE, tile_base: int = 0) -> Tensor:
+    """The slots each warp of the tile raster skips: (tiles, K2, tile // WARP_H,
+    tile // WARP_W) bool over the tile's WARP_W × WARP_H blocks, one per warp:
+    what its CTA's square (`cta_side`) rejects and what the same test at its
+    own block's corners does."""
+    side = cta_side(tile)
+    sub = tile_region_reject(entries, comb, width, side, side, tile, tile_base)
+    sub = sub.repeat_interleave(side // WARP_H, 2).repeat_interleave(side // WARP_W, 3)
+    return sub | tile_region_reject(entries, comb, width, WARP_W, WARP_H, tile, tile_base)
 
 
-def tile_work(entries: Tensor, comb: Tensor, rounds_run: Tensor, width: int) -> dict[str, int]:
+def tile_work(entries: Tensor, comb: Tensor, rounds_run: Tensor, width: int, tile: int = TILE,
+              tile_base: int = 0) -> dict[str, int]:
     """What the tile raster does in the rounds each tile ran (`rounds_run`, from
     `_raster_tiles_plain`): `real`, the entries ≥ 0 of those rounds; `region_tests`,
-    one reject test per (real entry, sub-tile); `evaluated`, the (entry, pixel)
+    one reject test per (real entry, CTA); `evaluated`, the (entry, pixel)
     pairs at which a warp evaluates the planes, each warp block's slots that
     `tile_warp_reject` keeps at its WARP_W·WARP_H pixels; and the grid, `clusters`
-    (one per tile) and `ctas`."""
+    (one per tile), `cluster` (CTAs a tile) and `ctas`."""
     t_n, k2 = entries.shape
     ran = torch.div(torch.arange(k2, device=entries.device), TILE_ROUND, rounding_mode="floor")[None] \
         < rounds_run[:, None]
     real = int(((entries >= 0) & ran).sum())
-    kept = ~tile_warp_reject(entries, comb, width) & ran[:, :, None, None]
-    return {"real": real, "region_tests": real * CLUSTER, "evaluated": int(kept.sum()) * WARP_W * WARP_H,
-            "clusters": t_n, "ctas": t_n * CLUSTER}
+    kept = ~tile_warp_reject(entries, comb, width, tile, tile_base) & ran[:, :, None, None]
+    n_cta = cluster_size(tile)
+    return {"real": real, "region_tests": real * n_cta, "evaluated": int(kept.sum()) * WARP_W * WARP_H,
+            "clusters": t_n, "cluster": n_cta, "ctas": t_n * n_cta}
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _raster_tiles_cuda(entries, comb, counts, near_r, width, height):
+def _raster_tiles_cuda(entries, comb, counts, near_r, width, height, tile, tile_base):
     """Launch `raster_tiles` on PyTorch's current stream. Raises on a build or
     launch error; never falls back."""
     from .._build import load_kernel_library
@@ -341,7 +377,7 @@ def _raster_tiles_cuda(entries, comb, counts, near_r, width, height):
     gb = torch.empty((height, width, N_GB_ATTR), dtype=torch.bfloat16, device=dev)
     err = lib.raster_tiles(
         entries.data_ptr(), comb.data_ptr(), counts.data_ptr(), near_r.data_ptr(),
-        t_n, k2, width, height, depth.data_ptr(), vid.data_ptr(), gb.data_ptr(),
+        t_n, k2, width, height, tile, tile_base, depth.data_ptr(), vid.data_ptr(), gb.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -452,29 +488,37 @@ def rasterize_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, height
     return fold_live_pairs(pairs, tx * ty, width, height, dev)
 
 
-def run_tiles(entries, comb, counts, near_r, width, height):
+def run_tiles(entries, comb, counts, near_r, width, height, tile=TILE, tile_base=0):
     """Device dispatch: the CUDA kernel for tensors on a card (counted in
-    `LAUNCHES`), the plain version for tensors on the CPU, nothing else."""
+    `LAUNCHES`), the plain version for tensors on the CPU, nothing else. A
+    tile outside `TILES` or a negative `tile_base` raises first."""
     global LAUNCHES
+    check_tile(tile)
+    if tile_base < 0:
+        raise ValueError(f"tile_base={tile_base}: a band starts at a tile id >= 0")
     if entries.is_cuda:
-        out = _raster_tiles_cuda(entries, comb, counts, near_r, width, height)
+        out = _raster_tiles_cuda(entries, comb, counts, near_r, width, height, tile, tile_base)
         LAUNCHES += 1
         return out
     if entries.device.type == "cpu":
-        return rasterize_tiles_reference(entries, comb, counts, near_r, width, height)
+        return rasterize_tiles_reference(entries, comb, counts, near_r, width, height, tile, tile_base)
     raise ValueError(f"no raster implementation for device {entries.device}")
 
 
-def rasterize_gbuffer_tiles(blocks: dict, counts: Tensor, width: int, height: int, tile: int = TILE):
-    """The tile raster over `pack_tile_blocks` output. Returns (depth (H, W) f32
-    reverse-Z, vid (H, W) i32 = tile·256 + entry or -1, gb (H, W, 16) bf16)."""
-    if tile != TILE:
-        raise NotImplementedError(f"tile={tile}: the port's raster takes 64-px tiles")
-    tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+def rasterize_gbuffer_tiles(blocks: dict, counts: Tensor, width: int, height: int, tile: int = TILE,
+                            tile_base: int = 0):
+    """The tile raster over `pack_tile_blocks` output, at a tile edge of
+    `TILES` (any other raises `ValueError`). The input's tiles are the image's
+    tiles `tile_base` on, covering `width` × `height` (a band of a larger image
+    with `tile_base` > 0). Returns (depth (H, W) f32 reverse-Z, vid (H, W) i32
+    = (t + tile_base)·256 + entry or -1, gb (H, W, 16) bf16)."""
+    check_tile(tile)
+    tile_base = int(tile_base)
+    tx, ty = (width + tile - 1) // tile, (height + tile - 1) // tile
     if blocks["entries"].shape[0] != tx * ty:
-        raise ValueError(f"{blocks['entries'].shape[0]} tiles for a {width}×{height} image")
+        raise ValueError(f"{blocks['entries'].shape[0]} tiles for a {width}×{height} image at tile {tile}")
     return run_tiles(blocks["entries"], blocks["comb"], counts.to(torch.int32).contiguous(),
-                     blocks["near_r"], width, height)
+                     blocks["near_r"], width, height, tile, tile_base)
 
 
 def gbuffer_from_raster(gb: Tensor, vid: Tensor, depth: Tensor, inv_view_proj: Tensor) -> dict[str, Tensor]:

@@ -133,7 +133,7 @@ class RenderSpec:
     max_visible_meshlets: int = 4096
     meshlets_per_tile: int = 64
     use_pallas: bool = True      # the G-buffer raster; False: the decode path (rasterize_reference, decode_visbuffer)
-    tile: int = 64               # the tile route takes 64; the group route 32 or 64
+    tile: int = 64               # the tile route takes 16, 32 or 64; the group route 32 or 64
     raster_group: int = 64       # slots per dense group (group route, compact_raster; ≤ 128)
     compact_raster: bool = True  # group route: compact_triangles, else the source meshlets as groups
     raster_path: str = "tile"    # "tile": per-tile triangle lists (raster3d); "group": group lists (raster_groups)

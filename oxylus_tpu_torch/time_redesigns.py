@@ -12,8 +12,8 @@ one card, for this checkout or another one:
 SECTION names what to time, all of it when none is named: `kernels` (the
 main path's and the physics cell's kernels and the bench rates below),
 `dot_rhs_t`, `roll_lanes` and `dynslice` (the probes 9a, 9c's roll and 9b),
-`groups` (the group raster), `blend` (the sprite blend) and `products` (9d's
-FFMA and bf16 products).
+`groups` (the group raster), `blend` (the sprite blend), `products` (9d's
+FFMA and bf16 products) and `tiles` (the tile raster at every tile edge).
 
 The second form (only as a file: `-m` has imported this checkout's package
 already) imports the package from DIR (for example a `git archive` of
@@ -83,6 +83,12 @@ Prints the card's name and power limit, then one JSON object:
   frame. Each `[events, graph]` as `tiles_ms`, after the call is held
   exactly (depth bits, vid, G-buffer bits; colour bits, vid) against its
   plain version (`rasterize_groups_reference`, `blend_tiles_reference`).
+- `tile_edges_ms`: the tile raster's early (K2 = 192) and late (K2 = 128)
+  pass of one config-5 frame rendered from a shared state and a carry one
+  frame old (the first of the runner's frames whose render runs both) at
+  every tile edge the checkout takes (`raster3d.TILES`; 64 alone where it has
+  none), by edge; each `[events, graph]` as `tiles_ms`, after the call is
+  held exactly against `rasterize_tiles_reference`.
 - `products`: 9d's two products at the script's five shapes, Σ over 500
   repetitions of seeded a·b, each first held within `product_bound` of
   `matmul_reference` (`of_bound`: the largest error as a share of it): `ms`,
@@ -110,7 +116,7 @@ from pathlib import Path
 REPS = 20
 PROBE_REPS = 200  # calls in the probes' CUDA graph, as `chip_smoke.py` phase 14
 DT = 1.0 / 60.0
-SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend", "products")
+SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend", "products", "tiles")
 BLEND_FRAMES = 62  # the 2D and config-3 runners' frames before the blend is captured (chip_smoke's 2 + 60)
 FIELDS = ("pos", "linvel", "angvel", "quat")
 
@@ -201,6 +207,8 @@ def main(argv: list[str]) -> int:
         blend_section(torch, dev, out)
     if "products" in want:
         products_section(torch, dev, out)
+    if "tiles" in want:
+        tiles_section(torch, dev, out)
     if "kernels" not in want:
         print(json.dumps(out), flush=True)
         return 0
@@ -393,6 +401,46 @@ def groups_section(torch, dev, out) -> None:
     for a in calls:
         exact(torch, "group raster", run(*a), raster_groups.rasterize_groups_reference(*a))
         out["groups_ms"].append(timed_pair(torch, lambda: run(*a)))
+
+
+def tiles_section(torch, dev, out) -> None:
+    """The tile raster's two passes of one config-5 frame at every tile edge (see the module's docstring)."""
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import raster3d
+    from oxylus_tpu_torch.render.camera import camera_from_state
+    from oxylus_tpu_torch.render.renderer3d import RendererInstance
+    from oxylus_tpu_torch.runtime import SceneRunner
+
+    scene, runner_kw = build_frame5_scene(1920, 1080, device=dev)
+    runner = SceneRunner(scene, **runner_kw)
+    spec = runner.renderer3d.spec
+    edges = getattr(raster3d, "TILES", (64,))
+    run, calls = raster3d.run_tiles, []
+    for _ in range(120):  # the late pass runs once the pile hides and uncovers objects
+        prev = runner.carry
+        runner.step()
+        cam = camera_from_state(runner.state, runner._resolve_camera_idx(), 1920 / 1080)
+        passes = {}
+        raster3d.run_tiles = lambda *a: (calls.append(a), run(*a))[1]
+        try:
+            for edge in edges:
+                calls.clear()
+                RendererInstance(dataclasses.replace(spec, tile=edge)).render(
+                    runner.state, runner.gscene, cam, runner.bindings.materials, runner.bindings.atlas,
+                    runner.config, prev=prev, atmosphere=runner.atmosphere, enable_shadows=runner.enable_shadows,
+                    static_lights=runner._static_lights)
+                passes[edge] = list(calls)
+        finally:
+            raster3d.run_tiles = run
+        if all(len(c) == 2 for c in passes.values()):
+            break
+    else:
+        raise RuntimeError("no config-5 frame with both tile raster passes")
+    out["tile_edges_ms"] = {}
+    for edge, pair in passes.items():
+        for a in pair:
+            exact(torch, f"tile raster at tile {edge}", run(*a), raster3d.rasterize_tiles_reference(*a))
+        out["tile_edges_ms"][str(edge)] = [timed_pair(torch, lambda: run(*a)) for a in pair]
 
 
 def blend_section(torch, dev, out) -> None:

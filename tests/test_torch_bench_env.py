@@ -20,8 +20,8 @@ the repo's `bench.py` reads, on the CPU.
   variables carries them, its capacities from the prepass counts by the
   formula of `bench.py:595-596`.
 - What the port cannot run is refused with the variable's name: `OX_TILE`
-  other than 64, `OX_K2` not a multiple of 64 or above 256, a count of 0,
-  a value that is not a number."""
+  other than 16, 32 or 64, `OX_K2` not a multiple of 64 or above 256, a count
+  of 0, a value that is not a number."""
 
 import json
 import math
@@ -45,6 +45,7 @@ KNOB_SETS = {
     "none": {},
     "all": {"OX_COMPACT": "1", "OX_TILE": "64", "OX_K2": "128", "OX_BG": "16", "OX_MPT": "32"},
     "k2-256": {"OX_K2": "256", "OX_BG": "48", "OX_COMPACT": "0"},
+    "tile-32": {"OX_TILE": "32"},
 }
 
 JAX_SIDE = """
@@ -229,8 +230,8 @@ def test_sponza_knobs_match_bench_py(monkeypatch):
 
 
 @pytest.mark.parametrize("cell, env, error", [
-    ("frame3d", {"OX_TILE": "32"}, NotImplementedError),
-    ("sponza", {"OX_TILE": "128"}, NotImplementedError),
+    ("frame3d", {"OX_TILE": "48"}, ValueError),
+    ("sponza", {"OX_TILE": "128"}, ValueError),
     ("frame5", {"OX_K2": "320"}, ValueError),
     ("frame3d", {"OX_K2": "100"}, ValueError),
     ("sponza", {"OX_BG": "0"}, ValueError),

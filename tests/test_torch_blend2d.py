@@ -3,6 +3,10 @@ its texture tiles, the sort keys and the sprite sort against the JAX package.
 
 - `resample_texture_tiles`: both JAX atlas branches (one-hot products for
   atlases ≤ 256, the gather above) against the port's gather, exactly.
+- `build_sprite_texture_tiles` on seeded per-sprite materials (scrolling,
+  negative uv offsets, some just below an integer; rects partly outside
+  [0, 1] and past the int32 range once scaled) at atlases of 64 and 512 px,
+  exactly.
 - `blend_tiles` (the plain version on CPU tensors) against
   `blend_tiles_pallas(..., interpret=True)`, with and without scene depth, on
   textured, tinted, flipped and alpha-masked sprites stacked in layers over a
@@ -13,15 +17,20 @@ its texture tiles, the sort keys and the sprite sort against the JAX package.
 - `f32_to_sortable_u32` and `sprite_sort_order`: equal.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from oxylus_tpu.assets.material import empty_gpu_materials
 from oxylus_tpu.ops.raster2d import sprite_sort_order as jsort
 from oxylus_tpu.ops.raster2d_pallas import blend_tiles_pallas
+from oxylus_tpu.ops.raster2d_pallas import build_sprite_texture_tiles as jbuild_tiles
 from oxylus_tpu.ops.raster2d_pallas import resample_texture_tiles as jresample
 from oxylus_tpu.ops.sampling import f32_to_sortable_u32 as jkey
+from oxylus_tpu_torch import bridge
 from oxylus_tpu_torch.ops import blend2d
 from oxylus_tpu_torch.ops.raster2d import f32_to_sortable_u32, sprite_sort_order
 
@@ -48,6 +57,29 @@ def test_resample_texture_tiles_matches_jax(atlas_size):
     got = blend2d.resample_texture_tiles(torch.from_numpy(packed), torch.from_numpy(atlas)).numpy()
     assert got.shape == want.shape == (s, 16, 16, 4)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("atlas_size", [64, 512])
+def test_build_sprite_texture_tiles_matches_jax(atlas_size):
+    rng = np.random.default_rng(atlas_size + 1)
+    s = 48
+    uv_size = rng.uniform(0.1, 1.5, (s, 2)).astype(np.float32)
+    uv_offset = rng.uniform(-2.5, 1.5, (s, 2)).astype(np.float32)  # scrolling windows, negative offsets
+    uv_offset[:6] = -np.float32(1e-9)  # just below 0: the wrap rounds to 1.0
+    uv_offset[6:10] = np.float32(-3.0) - np.float32(1e-7)
+    uv_size[:6] = 0.0
+    lo = rng.uniform(-0.3, 0.9, (s, 2))  # rects partly outside [0, 1]
+    rect = np.concatenate([lo, lo + rng.uniform(0.02, 0.6, (s, 2))], 1).astype(np.float32)
+    rect[10, 2], rect[11, 0], rect[12, 3] = 1e12, -1e12, 3e9  # past int32 once scaled by the atlas
+    mats = dataclasses.replace(empty_gpu_materials(s), uv_size=jnp.asarray(uv_size),
+                               uv_offset=jnp.asarray(uv_offset), albedo_rect=jnp.asarray(rect))
+    atlas = rng.integers(0, 256, (atlas_size, atlas_size, 4), dtype=np.uint8)
+    want = np.asarray(jbuild_tiles(mats, jnp.asarray(atlas)))
+    got = blend2d.build_sprite_texture_tiles(bridge.gpu_materials_from_numpy(mats), torch.from_numpy(atlas))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (s, 16, 16, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (np.fmod(uv_offset[:, None] + np.linspace(0, 1, 16, dtype=np.float32)[:, None] * uv_size[:, None], 1)
+            < 0).any()  # windows that wrap from below 0
 
 
 def _sprites(seed: int):

@@ -10,6 +10,10 @@ held in plain PyTorch (no JAX in this file):
   each round) equals `_raster_tiles_plain` exactly, depth bits and vids; the
   same model with the early-out decided per sub-tile, or with none, does not
   on a tile whose early-out decides an exact-depth tie;
+- both hold at the kernel's other tile edges, 16 and 32 (one CTA a tile, the
+  margin's span the tile's), on a seeded input and the tie input re-tiled;
+- a tile edge outside (16, 32, 64) is refused with `ValueError` by the
+  wrapper and by the bench's `OX_TILE`;
 - a plain model of the single-pass HiZ (each 64² block's own levels, then the
   tail), `hiz.hiz_block_levels`, equals `hiz_reference` on every level.
 
@@ -37,17 +41,18 @@ K2, TILE = 192, tr.TILE
 PIX = TILE * TILE
 
 
-def _tile_keys(entries, comb, width):
+def _tile_keys(entries, comb, width, tile=TILE, tile_base=0):
     """Per (tile, entry, tile pixel): the plain version's cover and packed key
     (bits(z) & ~127) | (127 - slot), every entry at every pixel, in its
     operation order."""
     t_n, k2 = entries.shape
-    tx = (width + TILE - 1) // TILE
-    xl, yl = tr._tile_local_pixels(entries.device)
+    tx = (width + tile - 1) // tile
+    xl, yl = tr._tile_local_pixels(entries.device, tile)
     code = (127 - torch.arange(k2) % tr.TILE_ROUND).to(torch.int32)[:, None]
     covers, keys = [], []
     for t in range(t_n):
-        x0, y0 = float((t % tx) * TILE), float((t // tx) * TILE)
+        tg = t + tile_base
+        x0, y0 = float((tg % tx) * tile), float((tg // tx) * tile)
         ent = entries[t]
         co = comb[torch.clamp(ent, min=0).long(), tr.PLANE_OFF : tr.PLANE_OFF + 15]
         co = torch.where((ent >= 0)[:, None], co, 0.0).reshape(k2, 5, 3)
@@ -65,32 +70,33 @@ def _tile_keys(entries, comb, width):
     return torch.stack(covers), torch.stack(keys)
 
 
-def _per_pixel(region: torch.Tensor, rw: int, rh: int) -> torch.Tensor:
-    """(T, K2, TILE // rh, TILE // rw) → (T, K2, PIX), each region's value at its pixels."""
-    return region.repeat_interleave(rh, 2).repeat_interleave(rw, 3).reshape(*region.shape[:2], PIX)
+def _per_pixel(region: torch.Tensor, rw: int, rh: int, tile=TILE) -> torch.Tensor:
+    """(T, K2, tile // rh, tile // rw) → (T, K2, tile²), each region's value at its pixels."""
+    return region.repeat_interleave(rh, 2).repeat_interleave(rw, 3).reshape(*region.shape[:2], tile * tile)
 
 
-def _cluster_model(entries, comb, counts, near_r, width, height, decide="tile"):
+def _cluster_model(entries, comb, counts, near_r, width, height, tile=TILE, tile_base=0, decide="tile"):
     """Plain model of the cluster kernel: rounds in order, each slot in
     ascending order at the pixels of the warp blocks whose reject keeps it,
     strict > on the packed key; before each round the early-out compares the
     min of key & ~127 over the whole tile (`decide="tile"`, the kernel), over
-    each 32² sub-tile on its own ("subtile"), or runs every round ("none").
+    each CTA's square on its own ("subtile"), or runs every round ("none").
     Returns (depth (H, W), vid (H, W))."""
     t_n, k2 = entries.shape
-    cover, zi = _tile_keys(entries, comb, width)
-    keep = _per_pixel(~tr.tile_warp_reject(entries, comb, width), tr.WARP_W, tr.WARP_H)
-    lin = torch.arange(PIX)
-    sub = (lin // TILE // tr.SUB) * (TILE // tr.SUB) + (lin % TILE) // tr.SUB  # each pixel's sub-tile
+    pix, side, n_cta = tile * tile, tr.cta_side(tile), tr.cluster_size(tile)
+    cover, zi = _tile_keys(entries, comb, width, tile, tile_base)
+    keep = _per_pixel(~tr.tile_warp_reject(entries, comb, width, tile, tile_base), tr.WARP_W, tr.WARP_H, tile)
+    lin = torch.arange(pix)
+    sub = (lin // tile // side) * (tile // side) + (lin % tile) // side  # each pixel's CTA
     rounds_n = (counts + tr.TILE_ROUND - 1) // tr.TILE_ROUND
-    key = torch.zeros((t_n, PIX), dtype=torch.int32)
-    vid = torch.full((t_n, PIX), -1, dtype=torch.int32)
-    active = torch.ones((t_n, tr.CLUSTER), dtype=torch.bool)
+    key = torch.zeros((t_n, pix), dtype=torch.int32)
+    vid = torch.full((t_n, pix), -1, dtype=torch.int32)
+    active = torch.ones((t_n, n_cta), dtype=torch.bool)
     for r0 in range(k2 // tr.TILE_ROUND):
         if decide == "tile":
-            dmin = (key.min(1).values & ~127)[:, None].expand(t_n, tr.CLUSTER)
+            dmin = (key.min(1).values & ~127)[:, None].expand(t_n, n_cta)
         else:
-            dmin = torch.stack([key[:, sub == q].min(1).values for q in range(tr.CLUSTER)], 1) & ~127
+            dmin = torch.stack([key[:, sub == q].min(1).values for q in range(n_cta)], 1) & ~127
         go = (r0 < rounds_n)[:, None] & ((dmin < near_r[:, r0 : r0 + 1]) | (decide == "none"))
         active = active & go
         run = active[:, sub]  # (T, PIX)
@@ -98,35 +104,51 @@ def _cluster_model(entries, comb, counts, near_r, width, height, decide="tile"):
             k = r0 * tr.TILE_ROUND + s
             upd = run & cover[:, k] & keep[:, k] & (zi[:, k] > key)
             key = torch.where(upd, zi[:, k], key)
-            vid = torch.where(upd, (torch.arange(t_n)[:, None] * 256 + k).to(torch.int32), vid)
-    tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+            vid = torch.where(upd, ((torch.arange(t_n)[:, None] + tile_base) * 256 + k).to(torch.int32), vid)
+    tx, ty = (width + tile - 1) // tile, (height + tile - 1) // tile
 
     def untile(a):
-        return a.reshape(ty, tx, TILE, TILE).transpose(1, 2).reshape(ty * TILE, tx * TILE)[:height, :width]
+        return a.reshape(ty, tx, tile, tile).transpose(1, 2).reshape(ty * tile, tx * tile)[:height, :width]
 
     return untile((key & ~127).view(torch.float32)), untile(vid)
 
 
+SEEDED = ["seeded0", "seeded1", "seeded2"]
+SCENES = SEEDED + ["tie", "tie_full"]
+# the kernel's other tile edges, each on a seeded input and the tie input re-tiled
+OTHER_TILES = [(name, tile) for tile in (16, 32) for name in ("seeded0", "tie")]
+
+
 @pytest.fixture(scope="module")
 def scenes():
-    """Per scene, its raster inputs and the plain version's (depth, vid, rounds run)."""
-    out = {f"seeded{s}": seeded_tiles(s, "cpu") for s in (0, 1, 2)}
-    out["tie"], out["tie_full"] = tie_tiles(False, "cpu"), tie_tiles(True, "cpu")
+    """Per scene, its raster inputs (at 64² tiles under the scene's name, at
+    another tile under (name, tile)) and the plain version's (depth, vid,
+    rounds run)."""
+    make = {f"seeded{s}": lambda tile, s=s: seeded_tiles(s, "cpu", tile=tile) for s in (0, 1, 2)}
+    make["tie"] = lambda tile: tie_tiles(False, "cpu", tile=tile)
+    make["tie_full"] = lambda tile: tie_tiles(True, "cpu", tile=tile)
     result = {}
-    for name, args in out.items():
+    for key in SCENES + OTHER_TILES:
+        name, tile = (key, TILE) if isinstance(key, str) else key
+        args = make[name](tile)
         d, v, _, rounds_run, _ = tr._raster_tiles_plain(*args)
-        result[name] = (args, d, v, rounds_run)
+        result[key] = (args, d, v, rounds_run)
     return result
 
 
-SEEDED = ["seeded0", "seeded1", "seeded2"]
-SCENES = SEEDED + ["tie", "tie_full"]
+def _cases(levels=None):
+    """The scenes at 64² tiles under their old ids, then the other tiles."""
+    out = [pytest.param(name, id=name) for name in SCENES]
+    out += [pytest.param(key, id=f"{key[0]}-tile{key[1]}") for key in OTHER_TILES]
+    if levels is None:
+        return out
+    return [pytest.param(level, *c.values, id=f"{level}-{c.id}") for level in levels for c in out]
 
 
 def test_scenes_exercise_the_rules(scenes):
     stopped = 0
     for name in SEEDED:
-        (entries, _, counts, _, _, _), _, vid, rounds_run = scenes[name]
+        (entries, _, counts, *_), _, vid, rounds_run = scenes[name]
         assert (vid >= 0).float().mean() > 0.3 and (vid < 0).any()
         rounds_n = (counts + tr.TILE_ROUND - 1) // tr.TILE_ROUND
         stopped += int((rounds_run < rounds_n).sum())
@@ -135,24 +157,25 @@ def test_scenes_exercise_the_rules(scenes):
     assert int(scenes["tie"][3][0]) == 2 and int(scenes["tie_full"][3][0]) == 1
 
 
-@pytest.mark.parametrize("name", SCENES)
-@pytest.mark.parametrize("level", ["subtile", "warp"])
+@pytest.mark.parametrize("level, name", _cases(["subtile", "warp"]))
 def test_rejected_slots_cover_no_pixel_of_their_region(scenes, name, level):
-    """Neither the sub-tile's reject nor a warp's (the sub-tile's and its own
-    block's) skips a slot that covers a pixel centre of its region."""
-    (entries, comb, _, _, w, _), *_ = scenes[name]
+    """Neither the CTA's reject (a 64² tile's sub-tile, or the whole smaller
+    tile) nor a warp's (the CTA's and its own block's) skips a slot that
+    covers a pixel centre of its region."""
+    (entries, comb, _, _, w, _, tile, base), *_ = scenes[name]
+    side = tr.cta_side(tile)
     if level == "subtile":
-        rej, rw, rh = tr.tile_region_reject(entries, comb, w, tr.SUB, tr.SUB), tr.SUB, tr.SUB
+        rej, rw, rh = tr.tile_region_reject(entries, comb, w, side, side, tile, base), side, side
     else:
-        rej, rw, rh = tr.tile_warp_reject(entries, comb, w), tr.WARP_W, tr.WARP_H
-    cover, _ = _tile_keys(entries, comb, w)
-    assert not (_per_pixel(rej, rw, rh) & cover).any()
+        rej, rw, rh = tr.tile_warp_reject(entries, comb, w, tile, base), tr.WARP_W, tr.WARP_H
+    cover, _ = _tile_keys(entries, comb, w, tile, base)
+    assert not (_per_pixel(rej, rw, rh, tile) & cover).any()
     real = (entries >= 0)[:, :, None, None].expand_as(rej)
     assert int(rej[real].sum()) > 0.3 * int(real.sum())  # the reject does skip work
 
 
 def test_reject_takes_missing_entries_and_dead_slots(scenes):
-    (entries, comb, _, _, w, _), *_ = scenes["seeded1"]
+    (entries, comb, _, _, w, *_), *_ = scenes["seeded1"]
     rej = tr.tile_region_reject(entries, comb, w, tr.SUB, tr.SUB)
     co = comb[:, tr.PLANE_OFF : tr.PLANE_OFF + 3]
     dead_row = (co[:, 0] == 0) & (co[:, 1] == 0) & (co[:, 2] < 0)
@@ -161,7 +184,7 @@ def test_reject_takes_missing_entries_and_dead_slots(scenes):
     assert rej[dead].all()
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", _cases())
 def test_cluster_model_equals_the_plain_version(scenes, name):
     args, want_d, want_v, _ = scenes[name]
     d, v = _cluster_model(*args)
@@ -189,13 +212,34 @@ def test_the_tile_wide_early_out_decides_a_tie(scenes):
 
 
 def test_tile_work_counts_what_the_kernel_evaluates(scenes):
-    (entries, comb, counts, _, w, _), _, _, rounds_run = scenes["seeded0"]
+    (entries, comb, counts, _, w, *_), _, _, rounds_run = scenes["seeded0"]
     work = tr.tile_work(entries, comb, rounds_run, w)
     real_prefix = int(torch.minimum(counts, rounds_run * tr.TILE_ROUND).sum())
     assert work["real"] <= real_prefix and work["real"] > 0
     assert 0 < work["evaluated"] < work["real"] * PIX
-    assert work["region_tests"] == work["real"] * tr.CLUSTER
-    assert (work["clusters"], work["ctas"]) == (entries.shape[0], entries.shape[0] * tr.CLUSTER)
+    assert tr.cluster_size(TILE) == work["cluster"] == 4
+    assert work["region_tests"] == work["real"] * 4
+    assert (work["clusters"], work["ctas"]) == (entries.shape[0], entries.shape[0] * 4)
+
+
+@pytest.mark.parametrize("tile", [48, 128])
+def test_tiles_outside_the_kernels_are_refused(scenes, monkeypatch, tile):
+    """A tile edge outside `raster3d.TILES` raises `ValueError` naming the tiles
+    taken, before dispatch (here on CPU tensors), in the wrapper and in the
+    bench's `OX_TILE`. The JAX tile kernel runs any tile up to 64 (48 too):
+    a difference by design."""
+    from oxylus_tpu_torch import bench
+
+    (entries, comb, counts, near_r, w, h, *_), *_ = scenes["seeded0"]
+    blocks = {"entries": entries, "comb": comb, "near_r": near_r}
+    with pytest.raises(ValueError, match="16, 32, 64"):
+        tr.rasterize_gbuffer_tiles(blocks, counts, w, h, tile=tile)
+    with pytest.raises(ValueError, match="16, 32, 64"):
+        tr.run_tiles(entries, comb, counts, near_r, w, h, tile)
+    for cell in ("frame3d", "sponza"):
+        monkeypatch.setenv("OX_TILE", str(tile))
+        with pytest.raises(ValueError, match="OX_TILE"):
+            bench.raster_env(cell)
 
 
 @pytest.mark.parametrize("h, w, odd", [(1080, 1920, True), (100, 700, False), (129, 513, False)],
