@@ -27,7 +27,9 @@ views, picking and the graded tonemap), and the editor and the UI on that
 scene and on config 2's sprite ids (phase 21: project, panels, undo, play and
 stop, picks, ImGui and RML composites), and the tile raster route at 16- and
 32-px tiles (phase 22: config 5 and the atrium, bands, sprite texture tiles),
-with bodies and the atrium made from a fixed seed. Every
+and the sharded paths on a one-rank NCCL group and as 4 bands in turn (phase
+23: worlds, the tile-sharded raster, the band-sharded frames, C8), with
+bodies and the atrium made from a fixed seed. Every
 kernel-vs-plain check runs the kernel and its plain PyTorch version on the
 same card tensors through the kernel's wrapper
 (`megakernel_substeps_compact` and `megakernel_substeps_banded`, with their
@@ -288,6 +290,31 @@ sort and permutations; `megakernel_substeps`; `rasterize_depth`;
    atrium has no bodies), its frame's passes held and timed;
    `build_sprite_texture_tiles` on the card bit-equal to the CPU on 256
    seeded sprites over a 512² atlas.
+23. the sharded paths (`sharding_phase`, `oxylus_tpu_torch/parallel/`) under a
+   real NCCL process group of one rank on the card, created and destroyed in
+   the phase: first C8, `resample_texture_tiles` (phase 10's last frame),
+   `pack_atlas_taps` (the atrium's atlas, float32 and bfloat16) and
+   `sample_atlas_bilinear` (phase 17b's five calls of a frame, and seeded
+   rects, UVs and modes over the atrium's atlas) bit-equal on the card to the
+   CPU; 4 worlds of the flagship (1022 boxes, capacity 1024) through
+   `worlds_step` over the compact kernel's 60-substep call, 4 launches, each
+   world bit-equal to one single-world call, `worlds_reduce_mean` of the
+   heights equal to their mean; 4 worlds of the dryrun's 31-box scene through
+   `frame_step` for 10 frames, each bit-equal to the single-world
+   `SceneRunner`; `rasterize_tiles_sharded` of config 5 at 1080p (phase 17b's
+   culled meshlets) bit-equal to `rasterize_reference`; then at 1920×1080 and
+   at 1920×1024 `render_frame_sharded` (config 5, decode path) and
+   `render_frame_sharded_production` (config 5 at tiles 64 and 32; the
+   atrium textured at 64 through `slot_rows` and its atlas), each as the
+   one-rank call and as 4 bands run in turn through the stage functions (the
+   joins written here): the 4-band frame and every band's adapted luminance
+   bit-equal to the one-rank call, both bit-equal to the port's single-card
+   stage chain but on the bottom rows FXAA's reach (and the textured
+   albedo's upsampling) carries past the image (printed), at 1024 on every
+   row; the group raster launched once for the one-rank call and once a band
+   at `tile_base` 0, n, 2n, 3n. The frames are timed by events (one rank, 4
+   bands), each band's group raster in a CUDA graph, the NCCL all-reduce of
+   the histogram and the (empty) one-rank halo exchange by events.
 
 Phase 5 also builds two depths' pyramids at once on two CUDA streams (the
 HiZ wrapper keeps a finished-block counter per card and stream) and holds
@@ -416,6 +443,13 @@ TILES_EDGES = (16, 32)  # phase 22: the tile route's other tile edges, driven on
 TILES_FRAMES = 20  # phase 22: gated frames of each config-5 runner after its warm-up
 TILES_ATRIUM_FRAMES = 3  # phase 22: the atrium's frames at OX_TILE=32 after its warm-up
 TILES_SPRITES = 256  # phase 22: per-sprite materials of the texture-tile check
+SHARD_BANDS = 4  # phase 23: the bands run in turn on one card
+SHARD_WORLDS = 4  # phase 23: worlds of the flagship and of the dryrun's 31-box scene
+SHARD_FRAMES = 10  # phase 23: frame_step frames of the 31-box worlds
+SHARD_EXACT_HEIGHT = 1024  # phase 23: a multiple of SHARD_BANDS · 64 (and · 32): no row past the image
+SHARD_SLOTS = 64  # phase 23: slots per dense group of the group-route frames
+SHARD_TILES = (64, 32)  # phase 23: the group-route frames' tile edges
+SHARD_REPS = 5  # phase 23: timed calls of the group-route frames (the decode path's: 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2567,6 +2601,375 @@ def tiles_phase(dev, card: str, every_mod, per_frame_64: float) -> tuple[dict, l
     return dict(launches), rows
 
 
+def frame_inputs(runner, also=()) -> dict:
+    """One more frame of `runner` with its renderer's culled meshlets and
+    lighting inputs recorded (phase 23 builds its frames' geometry from
+    them); `also`: (module, function, list) captures of the same frame."""
+    from oxylus_tpu_torch.render import renderer3d
+
+    culled, pbr = [], []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(capture(renderer3d, "cull_meshlets", culled, keep=lambda out: out[:3], result=True))
+        stack.enter_context(capture(renderer3d, "apply_pbr", pbr, keep=lambda args: args[1:4]))
+        for mod, name, into in also:
+            stack.enter_context(capture(mod, name, into))
+        runner.step()
+    torch.cuda.synchronize()
+    return dict(vm=culled[0], lights=pbr[0][0], ambient=pbr[0][2], gscene=runner.gscene, world=runner.state.world,
+                state=runner.state, cam_idx=runner._camera_idx, materials=runner.bindings.materials,
+                atlas=runner.bindings.atlas, backface=runner.config.culling_triangle,
+                mpt=runner.renderer3d.spec.meshlets_per_tile)
+
+
+def shard_geometry(fi: dict, w: int, h: int) -> dict:
+    """A captured frame's inputs to the sharded frames at w × h: the triangle
+    setup of its culled meshlets through its camera at that aspect, the
+    decode path's coefficient matrix and 64-px lists of the visible
+    meshlets, and `compact_triangles`' dense groups of SHARD_SLOTS (slot
+    rows, suffix-maxed near bounds, float32 material rows, lists at each
+    SHARD_TILES edge)."""
+    from oxylus_tpu_torch.ops import raster3d, raster_depth
+    from oxylus_tpu_torch.ops.sampling import pack_material_tables
+    from oxylus_tpu_torch.ops.setup3d import bin_meshlets_to_tiles, compact_triangles, setup_triangles
+    from oxylus_tpu_torch.render.camera import camera_from_state
+
+    cam = camera_from_state(fi["state"], fi["cam_idx"], w / h)
+    vm_inst, vm_ml, vm_valid = fi["vm"]
+    setup = setup_triangles(fi["gscene"], fi["world"], vm_inst, vm_ml, vm_valid, cam.view_projection, w, h,
+                            backface_enabled=fi["backface"])
+    visible = dict(setup, ml_xmax=torch.where(vm_valid, setup["ml_xmax"], -1e9),
+                   ml_xmin=torch.where(vm_valid, setup["ml_xmin"], 1e9))
+    mats = fi["materials"]
+    dense = compact_triangles(setup, setup["tri_valid"] & vm_valid[:, None],
+                              fi["gscene"].inst_material[vm_inst.long()].long(), vm_inst, group=SHARD_SLOTS,
+                              width=float(w), height=float(h))
+    consts = torch.cat([mats.albedo_color[:, :3], mats.metallic_factor[:, None], mats.roughness_factor[:, None],
+                        mats.emissive_color], dim=1)
+    return dict(
+        w=w, h=h, setup=setup, coeff_mat=raster_depth.pack_coeff_matrix(setup["coeffs"], setup["tri_valid"]),
+        tiles=bin_meshlets_to_tiles(visible, w, h, raster3d.TILE, fi["mpt"])[0],
+        rows=raster3d.build_tile_comb(dense, consts[dense["slot_material"].long()]),
+        near_eo=torch.flip(torch.cummax(torch.flip(dense["ml_near"], [0]), 0).values, [0]),
+        slot_rows=pack_material_tables(mats)[dense["slot_material"].reshape(-1).long()],
+        group_tiles={t: bin_meshlets_to_tiles(dense, w, h, t, fi["mpt"])[0] for t in SHARD_TILES},
+        cam_pos=cam.position, inv_vp=torch.linalg.inv(cam.view_projection),
+    )
+
+
+def single_card_frame(fi: dict, g: dict, tile: int | None, textured: bool) -> tuple:
+    """The port's single-card stage chain of a frame, over the whole image:
+    the decode path (`tile` None: `rasterize_reference`, `decode_visbuffer`)
+    or the group raster at `tile` with `gbuffer_from_raster` (and the albedo
+    times its half-resolution texture, resized to full resolution), then
+    PBR, the histogram, exposure, tonemap and FXAA. Returns (ldr, lum)."""
+    from oxylus_tpu_torch.ops import raster3d, raster_groups
+    from oxylus_tpu_torch.ops.decode3d import decode_visbuffer
+    from oxylus_tpu_torch.ops.sampling import pack_atlas_taps, sample_material_textures
+    from oxylus_tpu_torch.parallel import sharding
+    from oxylus_tpu_torch.render.pbr import apply_pbr
+    from oxylus_tpu_torch.render.postfx import apply_fxaa, luminance_histogram
+    from oxylus_tpu_torch.utils.imgops import point_downsample, resize_linear
+
+    w, h = g["w"], g["h"]
+    if tile is None:
+        _, vid = raster3d.rasterize_reference(g["coeff_mat"], g["tiles"], w, h)
+        gbuf = decode_visbuffer(vid, g["setup"], fi["vm"][0], fi["gscene"], fi["world"], fi["materials"],
+                                fi["atlas"], width=w, height=h)
+    else:
+        depth, vid, gb = raster_groups.rasterize_gbuffer_groups(g["rows"], g["group_tiles"][tile], w, h, SHARD_SLOTS,
+                                                               ml_near=g["near_eo"], tile=tile)
+        gbuf = raster3d.gbuffer_from_raster(gb, vid, depth, g["inv_vp"])
+        if textured:
+            vid_h = point_downsample(vid, 2)
+            flat = torch.clamp((vid_h >> 8) * SHARD_SLOTS + (vid_h & 255), 0, g["slot_rows"].shape[0] - 1)
+            tex = sample_material_textures(g["slot_rows"][flat.long()], pack_atlas_taps(fi["atlas"]),
+                                           fi["atlas"].shape[0], point_downsample(gbuf["uv"].float(), 2),
+                                           features=("albedo",))
+            mod = torch.where((vid_h >= 0)[..., None], tex["albedo_rgb"], 1.0)
+            gbuf = dict(gbuf, albedo=gbuf["albedo"] * resize_linear(mod, (h, w, 3)))
+    hdr = apply_pbr(gbuf, fi["lights"], g["cam_pos"], fi["ambient"])
+    ldr, lum = sharding.band_ldr(hdr, luminance_histogram(hdr, sharding.HIST_MIN_LOG2, sharding.HIST_INV_RANGE))
+    return apply_fxaa(ldr), lum
+
+
+def bands_in_turn(fi: dict, g: dict, tile: int | None, textured: bool, n: int) -> tuple:
+    """`n` bands of the sharded frame run in turn on one card through the
+    stage functions, the collectives' joins written here: the bands'
+    histograms summed, each band's seam rows (FXAA's, and the textured
+    albedo's half-resolution ones) taken from its neighbours, the bands
+    concatenated and cropped. Returns (ldr, every band's lum)."""
+    from oxylus_tpu_torch.parallel import sharding
+
+    w, h = g["w"], g["h"]
+    if tile is None:
+        hdrs = [sharding.band_hdr(g["setup"], g["coeff_mat"], sharding.band_tiles(g["tiles"], w, h, n, b),
+                                  fi["vm"][0], fi["gscene"], fi["world"], fi["materials"], fi["atlas"], fi["lights"],
+                                  g["cam_pos"], fi["ambient"], w, h, b) for b in range(n)]
+    else:
+        kw = dict(tile=tile, slot_rows=g["slot_rows"], atlas=fi["atlas"]) if textured else dict(tile=tile)
+        gbs = [sharding.band_gbuffer_production(g["rows"], SHARD_SLOTS,
+                                                sharding.band_tiles(g["group_tiles"][tile], w, h, n, b, tile),
+                                                g["near_eo"], g["inv_vp"], w, h, b, **kw) for b in range(n)]
+        tex = [t for _, t in gbs]
+        hdrs = [sharding.band_shade(gb, t, tex[b - 1][-1:] if t is not None and b > 0 else None,
+                                    tex[b + 1][:1] if t is not None and b < n - 1 else None, fi["lights"],
+                                    g["cam_pos"], fi["ambient"], h, b) for b, (gb, t) in enumerate(gbs)]
+    total = hdrs[0][1].clone()
+    for _, hist in hdrs[1:]:
+        total += hist
+    ldrs, lums = zip(*(sharding.band_ldr(hdr, total) for hdr, _ in hdrs))
+    out = [sharding.band_fxaa(ldr, ldrs[b - 1][-1:] if b > 0 else None, ldrs[b + 1][:1] if b < n - 1 else None)
+           for b, ldr in enumerate(ldrs)]
+    return torch.cat(out)[:h], [float(x) for x in lums]
+
+
+def sharding_inputs(dev) -> dict:
+    """Phase 23's inputs without phases 10, 15 and 17b, to run the phase
+    alone: one frame each of config 2's 2D runner (its texture tiles'
+    inputs), of the atrium and of config 5 on the decode path (their culled
+    meshlets and lights, and the decode's bilinear samples), after 2 warm-up
+    frames each, at 1920×1080."""
+    from oxylus_tpu_torch.frame2d import build_frame2d_scene
+    from oxylus_tpu_torch.frame5 import build_frame5_scene
+    from oxylus_tpu_torch.ops import decode3d, raster2d
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.sponza import build_sponza_scene
+
+    captured = {"samples": []}
+    scene, kw = build_frame2d_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **kw)
+    runner.run(MAIN_WARMUP)
+    resample = []
+    with capture(raster2d, "resample_texture_tiles", resample):
+        runner.step()
+    captured["resample"] = resample[-1]
+    scene, kw, _ = build_sponza_scene(WIDTH, HEIGHT, device=dev)
+    runner = SceneRunner(scene, **kw)
+    runner.run(MAIN_WARMUP)
+    captured["atrium"] = frame_inputs(runner)
+    scene, kw = build_frame5_scene(WIDTH, HEIGHT, device=dev)
+    kw["render_spec"] = dataclasses.replace(kw["render_spec"], use_pallas=False)
+    runner = SceneRunner(scene, **kw)
+    runner.run(MAIN_WARMUP)
+    captured["frame5"] = frame_inputs(runner, also=((decode3d, "sample_atlas_bilinear", captured["samples"]),))
+    return captured
+
+
+def sharding_phase(dev, card: str, every_mod, captured: dict) -> dict:
+    """Phase 23, the sharded paths (`oxylus_tpu_torch/parallel/sharding.py`)
+    under a real NCCL group of one rank on the card, created and destroyed
+    here; every frame also run as SHARD_BANDS bands in turn through the same
+    stage functions, and the C8 repair held card against CPU on the captured
+    inputs of phases 10, 15 and 17b. Returns the kernels' launch counts over
+    the phase."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from oxylus_tpu_torch import probes
+    from oxylus_tpu_torch.flagship import build_flagship
+    from oxylus_tpu_torch.ops import blend2d, raster3d, raster_groups, sampling
+    from oxylus_tpu_torch.parallel import sharding
+    from oxylus_tpu_torch.physics import megakernel_compact as mc
+    from oxylus_tpu_torch.physics.megakernel_banded import band_coverage_report, count_hub_planes
+    from oxylus_tpu_torch.physics.state import PhysicsParams
+    from oxylus_tpu_torch.runtime import SceneRunner
+    from oxylus_tpu_torch.scene.frame import frame_step
+
+    t_phase = time.perf_counter()
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32) if t.is_floating_point() else t
+
+    # ---- C8: the texture tiles, the atlas taps and the bilinear sampler, card against CPU
+    def card_vs_cpu(label, fn, *args):
+        got = fn(*args)
+        want = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        n_diff = int((bits(got).cpu() != bits(want)).sum())
+        check(got.device == dev and n_diff == 0, f"23: {label} on the card differs from the CPU in {n_diff} values")
+        return got.numel()
+
+    rng = np.random.default_rng(23)
+    prefix, atlas2 = captured["resample"]
+    seeded_atlas = torch.from_numpy(rng.integers(0, 256, (512, 512, 4), dtype=np.uint8)).to(dev)
+    n = card_vs_cpu("resample_texture_tiles", blend2d.resample_texture_tiles, prefix, atlas2)
+    n_seeded = card_vs_cpu("resample_texture_tiles (seeded atlas)", blend2d.resample_texture_tiles, prefix,
+                           seeded_atlas)
+    # the form before the repair, a CPU scalar as the divisor: CUDA multiplies by its reciprocal
+    old_form = int(((seeded_atlas.float() / 255.0).cpu().view(torch.int32)
+                    != (seeded_atlas.cpu().float() / 255.0).view(torch.int32)).sum())
+    print(f"[23] C8: resample_texture_tiles on phase 10's last frame ({prefix.shape[0]} records; its "
+          f"{atlas2.shape[0]}² atlas holds {torch.unique(atlas2).numel()} byte values: {n} values; a seeded 512² "
+          f"atlas: {n_seeded} values) bit-equal to the CPU; the seeded atlas divided by the CPU scalar 255 on the "
+          f"card, the form before the repair: {old_form} of {seeded_atlas.numel()} quotients differ from the CPU's",
+          flush=True)
+    atrium_atlas = captured["atrium"]["atlas"]
+    for dtype in (torch.float32, torch.bfloat16):
+        n = card_vs_cpu(f"pack_atlas_taps({dtype})", lambda a, d=dtype: sampling.pack_atlas_taps(a, d), atrium_atlas)
+        print(f"[23] C8: pack_atlas_taps of the atrium's {atrium_atlas.shape[0]}² atlas as {dtype}: {n} values "
+              f"bit-equal to the CPU", flush=True)
+    n = sum(card_vs_cpu("sample_atlas_bilinear (phase 17b)", sampling.sample_atlas_bilinear, *args)
+            for args in captured["samples"])
+    shape = (HEIGHT // 2, WIDTH // 2)
+    lo = rng.uniform(0, 0.8, shape + (2,))
+    seeded = (atrium_atlas, torch.from_numpy(np.concatenate([lo, lo + rng.uniform(0.01, 0.2, shape + (2,))], -1)
+                                             .astype(np.float32)).to(dev),
+              torch.from_numpy(rng.uniform(-1.5, 2.5, shape + (2,)).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.integers(0, 5, shape).astype(np.int32)).to(dev))
+    n_seeded = card_vs_cpu("sample_atlas_bilinear (seeded)", sampling.sample_atlas_bilinear, *seeded)
+    print(f"[23] C8: sample_atlas_bilinear on phase 17b's {len(captured['samples'])} calls of a frame ({n} values) "
+          f"and on {shape[0]}x{shape[1]} seeded rects, UVs and modes over the atrium's atlas ({n_seeded} values): "
+          f"bit-equal to the CPU", flush=True)
+
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store", world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = sharding.make_mesh(1, device=dev)
+        group = mesh.get_group("worlds")
+        print(f"[23] process group: backend {dist.get_backend(group)}, {dist.get_world_size(group)} rank on "
+              f"{dev}; mesh {mesh}", flush=True)
+        check(dist.get_backend(group) == "nccl", "23: the group is not on NCCL")
+        for mod in every_mod:
+            mod.LAUNCHES = 0
+
+        # ---- worlds at full width: the flagship's 60-substep compact calls
+        ps0 = build_flagship(FLAGSHIP_BOXES, device=dev).physics_state
+        rep = band_coverage_report(ps0)
+        kern = functools.partial(mc.megakernel_substeps_compact, params=PhysicsParams(), dt=DT, n_substeps=60,
+                                 iterations=3, warm=0.7, geom_every=2, n_planes=count_hub_planes(ps0),
+                                 band=max(128, -(-(rep["max_rank_dist"] + 96) // 128) * 128))
+        single = kern(ps0)
+        l0 = mc.LAUNCHES
+        worlds = sharding.worlds_step(kern)(sharding.replicate_worlds(ps0, SHARD_WORLDS, mesh))
+        per_call = mc.LAUNCHES - l0
+        diff = [sharding_world_diff(worlds, w, single) for w in range(SHARD_WORLDS)]
+        heights = worlds.pos[..., 1]
+        mean_y = sharding.worlds_reduce_mean(heights, mesh)
+        mean_ok = torch.equal(bits(mean_y), bits(heights.mean(0)))
+        print(f"[23] worlds: {SHARD_WORLDS} worlds of the flagship ({int(ps0.active.sum())} bodies, capacity "
+              f"{ps0.num_slots}) through worlds_step over the compact kernel's 60-substep call: {per_call} compact "
+              f"launches in the call; fields differing from one single-world call per world {diff}; "
+              f"worlds_reduce_mean of the heights equal to their mean: {mean_ok}", flush=True)
+        check(per_call == SHARD_WORLDS, f"23: the worlds' call launched the compact kernel {per_call} times")
+        check(all(not d for d in diff), f"23: a world differs from the single-world call: {diff}")
+        check(mean_ok, "23: worlds_reduce_mean differs from the worlds' mean")
+
+        # ---- worlds of the dryrun's 31-box scene through frame_step, against the runner
+        scene = build_flagship(31, spec_kw=dict(max_entities=64, max_bodies=64, max_particles=64), device=dev)
+        params = PhysicsParams(max_pairs=256, velocity_iterations=4)
+        spec = scene.spec
+        states = sharding.replicate_worlds(scene.to_device_state(), SHARD_WORLDS, mesh)
+        bodies = sharding.replicate_worlds(scene.physics_state, SHARD_WORLDS, mesh)
+        step = sharding.worlds_step(lambda st, ps: frame_step(st, ps, params, DT, spec))
+        runner = SceneRunner(scene, physics_params=params, render_mode="none", device=dev)
+        for _ in range(SHARD_FRAMES):
+            states, bodies = step(states, bodies)
+            runner.step(DT)
+        diff = [sharding_world_diff(states, w, runner.state) + sharding_world_diff(bodies, w, runner.ps)
+                for w in range(SHARD_WORLDS)]
+        print(f"[23] worlds: {SHARD_WORLDS} worlds of the 31-box scene, {SHARD_FRAMES} frame_step frames: tensors "
+              f"differing from the single-world runner per world {diff}; mean body height "
+              f"{float(sharding.worlds_reduce_mean(bodies.pos[..., 1].mean(-1), mesh)):.4f} m", flush=True)
+        check(all(not d for d in diff), f"23: a world's frames differ from the runner's: {diff}")
+        del worlds, states, bodies, runner
+
+        # ---- the tile-sharded raster at config 5's 1080p
+        f5 = captured["frame5"]
+        g = shard_geometry(f5, WIDTH, HEIGHT)
+        d1, v1 = sharding.rasterize_tiles_sharded(g["coeff_mat"], g["tiles"], WIDTH, HEIGHT, mesh)
+        d0, v0 = raster3d.rasterize_reference(g["coeff_mat"], g["tiles"], WIDTH, HEIGHT)
+        ok = torch.equal(bits(d1), bits(d0)) and torch.equal(v1, v0)
+        print(f"[23] rasterize_tiles_sharded, config 5 at {WIDTH}x{HEIGHT} ({g['tiles'].shape[0]} tiles, "
+              f"{int((g['tiles'] >= 0).sum())} (tile, meshlet) pairs, coverage {float((v1 >= 0).float().mean()):.3f}):"
+              f" bit-equal to rasterize_reference {ok}", flush=True)
+        check(ok, "23: the tile-sharded raster differs from rasterize_reference")
+
+        # ---- the band-sharded frames: one NCCL rank, SHARD_BANDS bands in turn, the single-card chain
+        frames = [("config 5, decode path", f5, None, False), ("config 5, group raster at 64", f5, 64, False),
+                  ("config 5, group raster at 32", f5, 32, False),
+                  ("the atrium, group raster at 64, textured", captured["atrium"], 64, True)]
+        timed = []  # the 1080p frames timed after the checks: (label, one-rank call, 4-band run, band args)
+        for height in (HEIGHT, SHARD_EXACT_HEIGHT):
+            for label, fi, tile, textured in frames:
+                g = shard_geometry(fi, WIDTH, height)
+                kw = dict(slot_rows=g["slot_rows"], atlas=fi["atlas"]) if textured else {}
+                if tile is None:
+                    one = functools.partial(
+                        sharding.render_frame_sharded, g["setup"], g["coeff_mat"], g["tiles"], fi["vm"][0],
+                        fi["gscene"], fi["world"], fi["materials"], fi["atlas"], fi["lights"], g["cam_pos"],
+                        fi["ambient"], WIDTH, height, mesh)
+                else:
+                    one = functools.partial(
+                        sharding.render_frame_sharded_production, g["rows"], SHARD_SLOTS, g["group_tiles"][tile],
+                        g["near_eo"], fi["lights"], g["cam_pos"], fi["ambient"], g["inv_vp"], WIDTH, height, mesh,
+                        tile=tile, **kw)
+                bases, b_args = [], []
+                l0 = raster_groups.LAUNCHES
+                with capture(raster_groups, "run_groups", bases, keep=lambda a: a[-1]):
+                    ldr1, lum1 = one()
+                one_launches = raster_groups.LAUNCHES - l0
+                with capture(raster_groups, "run_groups", b_args):
+                    ldr4, lums4 = bands_in_turn(fi, g, tile, textured, SHARD_BANDS)
+                band_bases = [a[-1] for a in b_args]
+                ldr0, lum0 = single_card_frame(fi, g, tile, textured)
+                torch.cuda.synchronize()
+                inner = height - sharding.FXAA_REACH - (sharding.TEXTURE_REACH if textured else 0)
+                same4 = torch.equal(bits(ldr4), bits(ldr1)) and lums4 == [float(lum1)] * SHARD_BANDS
+                px = (bits(ldr1) != bits(ldr0)).any(-1)
+                rows_diff = torch.nonzero(px.any(-1)).flatten().tolist()
+                inner_ok = not bool(px[:inner].any()) and float(lum1) == float(lum0)
+                n_local = sharding.band_plan(WIDTH, height, SHARD_BANDS, tile or raster3d.TILE)[0]
+                print(f"[23] {label}, {WIDTH}x{height}: new_lum one rank {float(lum1):.6f}, {SHARD_BANDS} bands "
+                      f"{lums4[0]:.6f}, single card {float(lum0):.6f}; {SHARD_BANDS} bands bit-equal to one rank "
+                      f"{same4}; against the single-card chain {int(px.sum())} pixels differ, in rows {rows_diff} "
+                      f"(rows 0-{inner - 1} must be exact); group raster launches: one rank {one_launches} at "
+                      f"tile_base {bases}, bands {len(band_bases)} at {band_bases}", flush=True)
+                check(same4, f"23: {label} at {height}: the {SHARD_BANDS} bands differ from the one-rank frame")
+                check(inner_ok, f"23: {label} at {height}: the frame differs from the single-card chain above row "
+                                f"{inner}")
+                check(height != SHARD_EXACT_HEIGHT or not rows_diff,
+                      f"23: {label} at {height}: rows {rows_diff} differ from the single-card chain")
+                check(bool(torch.isfinite(ldr1).all()) and tuple(ldr1.shape) == (height, WIDTH, 3),
+                      f"23: {label}: frame shape {tuple(ldr1.shape)} or values not finite")
+                if tile is not None:
+                    check(one_launches == 1 and bases == [0], f"23: {label}: one-rank launches {bases}")
+                    check(band_bases == [b * n_local for b in range(SHARD_BANDS)],
+                          f"23: {label}: band launches at tile_base {band_bases}, not once a band")
+                if height == HEIGHT and tile in (None, 64):
+                    timed.append((label, one, functools.partial(bands_in_turn, fi, g, tile, textured, SHARD_BANDS),
+                                  b_args))
+        # the path's launches: the checks above; the timed calls below are not counted
+        launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
+        timings = {}
+        for label, one, bands, b_args in timed:
+            reps = SHARD_REPS if b_args else 1
+            timings[label] = dict(one_rank_ms=cuda_ms(one, reps), bands_ms=cuda_ms(bands, reps))
+            if b_args:
+                timings[label]["group_band_graph_ms"] = [
+                    probes.time_us(lambda a=a: raster_groups.run_groups(*a), dev, GRAPH_REPS)[0] * 1e-3
+                    for a in b_args]
+        hist = torch.zeros(256, dtype=torch.int32, device=dev)
+        row = torch.zeros((1, WIDTH, 3), device=dev)
+        timings["nccl_all_reduce_ms"] = cuda_ms(lambda: dist.all_reduce(hist, group=group), 20)
+        timings["halo_ms"] = cuda_ms(lambda: sharding.exchange_halo(row, group), 20)
+        print(f"[23] timings ({card}): {json.dumps(timings)}", flush=True)
+        print(f"[23] kernel launches over the phase's checks {launches}; phase 23 took "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        check(launches[mc.__name__] >= SHARD_WORLDS and launches[raster_groups.__name__] > 0,
+              f"23: the phase missed the compact kernel or the group raster: {launches}")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return launches
+
+
+def sharding_world_diff(batch, w: int, want) -> list[str]:
+    """The tensors in which world `w` of a batch differs from `want`, bits."""
+    from oxylus_tpu_torch.parallel import sharding
+
+    return states_bit_equal(sharding._tree_map(lambda x: x[w], batch), want)
+
+
 def main() -> int:
     # ---- 1. set-up ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2579,6 +2982,7 @@ def main() -> int:
     from oxylus_tpu_torch.frame3d import build_frame3d_scene
     from oxylus_tpu_torch.frame5 import build_frame5_scene
     from oxylus_tpu_torch.ops import blend2d, raster2d, raster3d, raster_depth, raster_groups, setup3d
+    from oxylus_tpu_torch.ops import decode3d
     from oxylus_tpu_torch.ops import hiz as hiz_ops
     from oxylus_tpu_torch.flagship import entry
     from oxylus_tpu_torch.physics import megakernel as mk
@@ -2594,6 +2998,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    captured = {}  # phase 23's inputs, taken from the frames of phases 10, 15 and 17b
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -3257,20 +3662,23 @@ def main() -> int:
     runner.run(MAIN_WARMUP)
     for mod in every_mod:
         mod.LAUNCHES = 0
-    per_frame, blend_args, on_screen, prefixes = [], [], [], []
+    per_frame, blend_args, on_screen, prefixes, resample_args = [], [], [], [], []
     t0 = time.perf_counter()
     with capture(blend2d, "run_blend", blend_args), \
             capture(raster2d, "sprite_sort_order", on_screen, keep=lambda args: args[4].sum()), \
-            capture(raster2d, "resample_texture_tiles", prefixes, keep=lambda args: args[0]):
+            capture(raster2d, "resample_texture_tiles", prefixes, keep=lambda args: args[0]), \
+            capture(raster2d, "resample_texture_tiles", resample_args):
         for _ in range(MAIN_FRAMES):
             blend_args.clear()
             on_screen.clear()
             prefixes.clear()
+            resample_args.clear()
             b0 = blend2d.LAUNCHES
             image = runner.step()
             per_frame.append(blend2d.LAUNCHES - b0)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    captured["resample"] = resample_args[0]  # phase 23's C8 check: the last frame's texture tiles
     path_launches = {mod.__name__: mod.LAUNCHES for mod in every_mod}
     launches[blend2d.__name__] = blend2d.LAUNCHES
     n_particles = int(runner.state.particles.alive.sum())
@@ -3874,6 +4282,8 @@ def main() -> int:
           f"the tile route's frame {psnr(img_k, img_t):.2f} dB", flush=True)
     check(rendered >= 2, "the group-route comparison frame missed a raster pass")
     check(torch.equal(img_k, img_p), "group-route atrium: kernel and plain frames differ")
+    # phase 23's inputs: one more atrium frame's culled meshlets, lights and atlas
+    captured["atrium"] = frame_inputs(tile_runner)
     del runner, tile_runner, scene, runner_kw, prev, img_k, img_p, img_t
     torch.cuda.empty_cache()
 
@@ -3974,6 +4384,9 @@ def main() -> int:
           and image.min().item() >= 0.0 and image.max().item() <= 1.0, "decode path: image not finite or outside [0, 1]")
     check(int(carry["expand_overflow"]) == 0, "decode path: the meshlet expansion dropped work")
     check(bool(torch.isfinite(ps.pos).all()) and min_y > FLOOR_MID_Y, "decode path: a box fell through the floor")
+    # phase 23's inputs: one more frame's culled meshlets and lights, and its bilinear samples (C8)
+    captured["samples"] = []
+    captured["frame5"] = frame_inputs(runner, also=((decode3d, "sample_atlas_bilinear", captured["samples"]),))
     del runner, scene, runner_kw
     torch.cuda.empty_cache()
 
@@ -3990,15 +4403,20 @@ def main() -> int:
     # ---- 22. the tile raster route at 16- and 32-px tiles: config 5, the atrium, bands, sprite tiles ----
     tiles_launches, tiles_rows = tiles_phase(dev, card, every_mod, full_launches[raster3d.__name__] / MAIN_FRAMES)
 
+    # ---- 23. the sharded paths on a one-rank NCCL group and as 4 bands in turn; C8 card against CPU ----
+    shard_launches = sharding_phase(dev, card, every_mod, captured)
+    del captured
+
     def row(name, source, replaces, mod, err, ms, plain, bd):
         # launches on the paths of phases 17a (the five goldens, each twice), 17b (the decode
         # path's timed frames), 18 (the atrium's group-route frames), 19 (the App's frames), 20
-        # (the roster's frames), 21 (the editor's edit and play frames and config 2's id image) and
-        # 22 (the config-5 frames at tiles 16 and 32 and the atrium's at 32)
+        # (the roster's frames), 21 (the editor's edit and play frames and config 2's id image),
+        # 22 (the config-5 frames at tiles 16 and 32 and the atrium's at 32) and 23 (the worlds and
+        # the sharded frames)
         paths = {"goldens_17a": golden_launches[mod.__name__], "decode_runner_17b": decode_launches[mod.__name__],
                  "atrium_group_18": atrium_group_launches[mod.__name__], "app_19": app_launches[mod.__name__],
                  "roster_20": roster_launches[mod.__name__], "editor_21": editor_launches[mod.__name__],
-                 "tiles_22": tiles_launches[mod.__name__]}
+                 "tiles_22": tiles_launches[mod.__name__], "sharding_23": shard_launches[mod.__name__]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[mod.__name__], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None, "path_launches": paths}

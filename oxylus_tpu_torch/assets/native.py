@@ -64,6 +64,11 @@ def _load():
     return _LIB
 
 
+def available() -> bool:
+    """Whether the C++ geometry library builds and loads here."""
+    return _load() is not None
+
+
 def bake_path() -> str:
     """`"native"` when the C++ kernels bake, `"numpy"` when the fallbacks do."""
     return "native" if _load() is not None else "numpy"

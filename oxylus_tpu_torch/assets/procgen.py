@@ -23,7 +23,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["generate_atrium_glb"]
+__all__ = ["generate_atrium_glb", "atrium_summary"]
 
 
 # ---------------------------------------------------------------------------
@@ -534,3 +534,12 @@ def generate_atrium_glb(path, n_meshes: int = 120, n_materials: int = 24, seed: 
 def tuple_with_normals(puv):
     pos, uv, idx = puv
     return (pos, _vertex_normals(pos, idx), uv, idx)
+
+
+def atrium_summary(path) -> dict:
+    """Cheap summary of an existing generated GLB (mesh/tri counts)."""
+    from .gltf import load_gltf
+
+    model = load_gltf(path, load_images=False)
+    tris = sum(len(p[0].indices) // 3 for p in model.meshes)
+    return {"meshes": len(model.meshes), "triangles": tris}

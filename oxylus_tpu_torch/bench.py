@@ -26,8 +26,10 @@ switch to the dense kernel, over `OX_BENCH_KERNEL`), `OX_BENCH_MEGA=0` (60 calls
 `physics_substep` per call instead of one kernel call), `OX_BENCH_GE` (the
 compact and banded kernels' geometry stride, default 2), `OX_BENCH_SLEEP=1`
 (sleeping on) and `OX_BENCH_RSLOTS` (the compact kernel's neighbour slots).
-`OX_BENCH_WORLDS` other than 1, the JAX bench's vmapped batch of worlds, is
-refused: stepping worlds side by side is not ported.
+`OX_BENCH_WORLDS=N` steps N copies of the scene side by side on one card
+(`parallel.sharding.worlds_step`: one kernel call a world, where the JAX
+bench vmaps them into one), the rate counted as body-steps × worlds; the
+drop and end-coverage gates apply at one world only, as in `bench.py`.
 
 The frame cells (frames per second at 1920×1080 against 60 frames/s): 2
 warm-up frames, then the median of 3 timed windows of `SceneRunner.step`,
@@ -79,6 +81,7 @@ from .ops import raster3d
 from .physics import megakernel, megakernel_banded, megakernel_compact
 from .physics.megakernel_banded import band_coverage_report, count_hub_planes
 from .physics.state import PhysicsParams
+from .parallel.sharding import replicate_worlds, worlds_step
 from .physics.step import physics_substep
 
 TARGET = 10e6  # body-steps/s: the repo's physics target (BASELINE.json)
@@ -101,18 +104,21 @@ def _sync(dev: torch.device) -> None:
 def bench_physics(n_boxes=1022, steps_per_call=60, calls=16, warmup=2, mega=True, kernel="compact",
                   n_piles=1, spec_kw=None, device=None, worlds=1) -> dict:
     """Rigid-body steps per second on the flagship scene of `n_boxes` boxes
-    in `n_piles` piles, one world, `steps_per_call` 60 Hz substeps per call.
+    in `n_piles` piles, `steps_per_call` 60 Hz substeps per call, in `worlds`
+    copies stepped side by side (`parallel.sharding.worlds_step`, one call a
+    world); the rate counts body-steps × worlds.
 
     Gates, as `bench.py:32-216`: the adaptive rank band (the worst pair rank
-    distance plus 96, rounded up to 128) covers the start state; with the
-    compact kernel the pairs dropped over every launch stay within 0.2 % of
-    the horizon's pair events; with any kernel the band still covers the end
-    state. Returns the median window's rate (`rate`), `n_bodies`, `worlds`,
-    the timed windows' seconds (`elapsed`), the band and the coverage reports
-    at start and end, the dropped pairs (total, most in one launch, pair
-    events; compact only) and the end state (`state`)."""
-    if worlds != 1:
-        raise ValueError("worlds > 1 (the JAX bench's vmapped batch of worlds) is not ported; use worlds=1")
+    distance plus 96, rounded up to 128) covers the start state; at one world,
+    with the compact kernel the pairs dropped over every launch stay within
+    0.2 % of the horizon's pair events, and with any kernel the band still
+    covers the end state. Returns the median window's rate (`rate`),
+    `n_bodies`, `worlds`, the timed windows' seconds (`elapsed`), the band and
+    the coverage reports at start and end, the dropped pairs (total, most in
+    one launch, pair events; gated runs only) and the end state (`state`,
+    with a leading world axis when `worlds` > 1)."""
+    if worlds < 1:
+        raise ValueError(f"worlds={worlds}: at least one world")
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     dev = resolve_device(device)
@@ -134,13 +140,13 @@ def bench_physics(n_boxes=1022, steps_per_call=60, calls=16, warmup=2, mega=True
     ge = int(os.environ.get("OX_BENCH_GE", "2"))
     sleep = os.environ.get("OX_BENCH_SLEEP", "0") == "1"
 
-    gated = mega and kernel == "compact"  # the route that reports dropped pairs
-    if gated:
+    gated = mega and kernel == "compact" and worlds == 1  # the route that reports dropped pairs
+    if mega and kernel == "compact":
         extra = {"band": band, "n_planes": n_planes}
         if os.environ.get("OX_BENCH_RSLOTS"):
             extra["r_slots"] = int(os.environ["OX_BENCH_RSLOTS"])
         step = functools.partial(megakernel_compact.megakernel_substeps_compact, iterations=3, warm=0.7,
-                                 geom_every=ge, sleep=sleep, with_overflow=True, **extra)
+                                 geom_every=ge, sleep=sleep, with_overflow=gated, **extra)
     elif mega and kernel == "banded":
         # the banded kernel runs at its fixed BAND = 128, whatever the adaptive band
         step = functools.partial(megakernel_banded.megakernel_substeps_banded, iterations=3, warm=0.7,
@@ -162,6 +168,10 @@ def bench_physics(n_boxes=1022, steps_per_call=60, calls=16, warmup=2, mega=True
             return p
         return step(p, params, dt, n_substeps=steps_per_call)
 
+    if worlds > 1:
+        run = worlds_step(run)
+        ps = replicate_worlds(ps, worlds)
+
     for _ in range(warmup):
         ps = run(ps)
     _sync(dev)
@@ -173,7 +183,7 @@ def bench_physics(n_boxes=1022, steps_per_call=60, calls=16, warmup=2, mega=True
         _sync(dev)
         el = time.perf_counter() - t0
         elapsed += el
-        seg_rates.append(n_bodies * steps_per_call * calls / el)
+        seg_rates.append(n_bodies * worlds * steps_per_call * calls / el)
     seg_rates.sort()
     log(f"physics segment rates: {[f'{r / 1e6:.2f}M' for r in seg_rates]}")
 
@@ -190,7 +200,7 @@ def bench_physics(n_boxes=1022, steps_per_call=60, calls=16, warmup=2, mega=True
             f"events; gate 0.2%); per-launch max {float(per_launch.max())}")
         _gate(frac <= DROP_GATE, f"bench scene drop rate too high: {dropped} dropped ({frac * 100:.3f}% > 0.2%)")
         out.update(dropped=dropped, dropped_max=float(per_launch.max()), pair_events=pair_events)
-    if mega:
+    if mega and worlds == 1:
         # collapsing piles concentrate bodies into fewer slabs: the band must
         # still cover the end state
         rep_end = band_coverage_report(ps, band=band)

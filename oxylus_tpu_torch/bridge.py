@@ -1,7 +1,7 @@
 """State carry-over between the JAX package and the port, through NumPy.
 
 `*_from_numpy` accepts the JAX package's `SceneState`, `PhysicsState`,
-`PhysicsParams`, `GPUScene` or `GPUMaterials` after `jax.device_get` (objects
+`PhysicsParams`, `GPUScene`, `GPUMaterials` or `Lights` after `jax.device_get` (objects
 whose fields are NumPy arrays), or a plain dict with the same keys, and builds
 the port's tensors on `device`; a JAX `BakedMesh` (NumPy already) becomes the
 port's `BakedMesh`.
@@ -28,6 +28,7 @@ import torch
 from .assets.bake import BakedMesh, LODData, MeshletData
 from .assets.material import GPU_MATERIAL_FIELDS, GPUMaterials
 from .physics.state import BODY_FIELDS, MESH_FIELDS, PhysicsParams, PhysicsState
+from .render.pbr import Lights
 from .render.scene3d import GPU_SCENE_FIELDS, GPUScene
 from .render.sky import AtmosphereParams
 from .scene.particles import ParticlePool
@@ -136,6 +137,10 @@ _MESHLET_FIELDS = (
     "vertex_offset", "vertex_count", "triangle_offset", "triangle_count", "indirect_vertices",
     "local_triangles", "center", "extent", "cone_axis", "cone_cutoff",
 )
+
+
+def lights_from_numpy(src: Any, device: torch.device | str = "cpu") -> Lights:
+    return Lights(**{f.name: _t(_get(src, f.name), device) for f in dataclasses.fields(Lights)})
 
 
 def baked_mesh_from_numpy(src: Any) -> BakedMesh:

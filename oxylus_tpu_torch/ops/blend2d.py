@@ -372,20 +372,22 @@ def resample_texture_tiles(packed_prefix: Tensor, atlas: Tensor) -> Tensor:
     albedo_rect), nearest texel of the atlas at a separable 16×16 grid over
     each sprite's window. The JAX package takes atlases ≤ 256 through one-hot
     products and larger ones through a gather; both give the atlas texel, so
-    one gather serves both here."""
+    one gather serves both here. The rect coordinates are cast to int32
+    saturating and the divisors are scalars on the operands' device, as in
+    `build_sprite_texture_tiles`."""
     a = atlas.shape[0]
     dev = packed_prefix.device
     uv_size = packed_prefix[:, 21:23]
     uv_offset = packed_prefix[:, 23:25]
     rect = packed_prefix[:, 25:29]
-    us = torch.arange(TEX, dtype=torch.float32, device=dev) / (TEX - 1)
+    us = torch.arange(TEX, dtype=torch.float32, device=dev) / torch.full((), TEX - 1.0, device=dev)
     uu = torch.remainder(uv_offset[:, None, 0] + us[None, :] * uv_size[:, None, 0], 1.0)  # (S, TEX)
     vv = torch.remainder(uv_offset[:, None, 1] + us[None, :] * uv_size[:, None, 1], 1.0)
     ax = (rect[:, None, 0] + uu * (rect[:, None, 2] - rect[:, None, 0])) * a
     ay = (rect[:, None, 1] + vv * (rect[:, None, 3] - rect[:, None, 1])) * a
-    ix = torch.clamp(ax.to(torch.int32), 0, a - 1).long()  # (S, TEX) column indices
-    iy = torch.clamp(ay.to(torch.int32), 0, a - 1).long()  # (S, TEX) row indices
-    return atlas[iy[:, :, None], ix[:, None, :]].to(torch.float32) / 255.0
+    ix = torch.clamp(to_int32_saturating(ax), 0, a - 1).long()  # (S, TEX) column indices
+    iy = torch.clamp(to_int32_saturating(ay), 0, a - 1).long()  # (S, TEX) row indices
+    return atlas[iy[:, :, None], ix[:, None, :]].to(torch.float32) / torch.full((), 255.0, device=atlas.device)
 
 
 def _mod1(x: Tensor) -> Tensor:

@@ -41,12 +41,17 @@ def decode_visbuffer(
     *,
     width: int,
     height: int,
+    row_offset: int = 0,
+    full_height: int | None = None,
 ) -> dict[str, Tensor]:
     """The G-buffer dict of `vid`: hit, albedo, normal, emissive, metallic,
     roughness, occlusion, world_pos, uv and tangent (the per-triangle tangent
     with its handedness in |T|: 1 → +1, 0.5 → −1; 0 without a UV frame), each
     zero (roughness and occlusion one) where nothing was hit; uv as
-    interpolated there too."""
+    interpolated there too. For a band of a taller image, `row_offset` is the
+    global row of vid[0] and `full_height` the image's height. The pixel
+    centres are divided by scalars on vid's device: CUDA divides by a CPU
+    scalar as a product with its reciprocal."""
     dev = vid.device
     hit = vid >= 0
     pid = torch.clamp(vid, min=0)
@@ -55,8 +60,11 @@ def decode_visbuffer(
     clip = setup["clip"][vm_slot, tri]            # (H, W, 3, 4)
     packed = setup["packed_verts"][vm_slot, tri]  # (H, W, 3, 8): pos | nrm | uv
 
-    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0 - 1.0
+    fh = height if full_height is None else full_height
+    rows = torch.full((), float(row_offset), device=dev) + torch.arange(height, dtype=torch.float32, device=dev)
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / torch.full((), float(width), device=dev)
+    xs = xs * 2.0 - 1.0
+    ys = (rows + 0.5) / torch.full((), float(fh), device=dev) * 2.0 - 1.0
     ndc_x = xs[None, :].expand(height, width)
     ndc_y = ys[:, None].expand(height, width)
 

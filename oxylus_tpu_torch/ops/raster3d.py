@@ -433,6 +433,13 @@ def fold_live_pairs(pairs, n_tiles: int, width: int, height: int, device) -> tup
     1 near; vid (H, W) i32 = (vm << 8) | slot, -1 empty): an entry's winner
     is the first slot of the largest depth, and it replaces a pixel only
     where strictly nearer."""
+    depth, vid = fold_live_pairs_tiled(pairs, n_tiles, device)
+    return _untile(depth, width, height), _untile(vid, width, height)
+
+
+def fold_live_pairs_tiled(pairs, n_tiles: int, device) -> tuple[Tensor, Tensor]:
+    """`fold_live_pairs` in the tiles' layout: (depth, vid) (n_tiles, 64²),
+    row t the pixels of the walked tile list's tile t, row-major."""
     depth = torch.zeros((n_tiles, TILE * TILE), dtype=torch.float32, device=device)
     vid = torch.full((n_tiles, TILE * TILE), -1, dtype=torch.int32, device=device)
     for tg, _, vm, _, zm in pairs:
@@ -442,7 +449,7 @@ def fold_live_pairs(pairs, n_tiles: int, width: int, height: int, device) -> tup
         better = best > depth[tg]
         depth[tg] = torch.where(better, best, depth[tg])
         vid[tg] = torch.where(better, (vm.to(torch.int32) << 8)[:, None] | arg, vid[tg])
-    return _untile(depth, width, height), _untile(vid, width, height)
+    return depth, vid
 
 
 def _fma_planes(px: Tensor, py: Tensor, blk: Tensor, n: int) -> Tensor:
@@ -458,7 +465,8 @@ def _fma_planes(px: Tensor, py: Tensor, blk: Tensor, n: int) -> Tensor:
     return t2 + c
 
 
-def rasterize_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int) -> tuple[Tensor, Tensor]:
+def rasterize_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, height: int,
+                        tile_base: int = 0) -> tuple[Tensor, Tensor]:
     """Depth and vid of the meshlets listed per 64² tile (the JAX package's
     `rasterize_reference`): `coeff_mat` (VM, 3, 5R) from
     `raster_depth.pack_coeff_matrix`, `tile_list` (T, K) meshlet or -1.
@@ -466,26 +474,45 @@ def rasterize_reference(coeff_mat: Tensor, tile_list: Tensor, width: int, height
     in float32 at global pixel centres. Returns (depth (H, W) f32, vid (H, W)
     i32).
 
+    With `tile_base` the call rasters a band of a taller image: tile t of the
+    list is the image's tile t + `tile_base` (its planes are evaluated at that
+    tile's pixels), and `height` is the band's, a multiple of 64 but for the
+    image's last band (the band form of the JAX sharded frames' shard body).
+
     The pairs are walked in chunks of tiles whose largest temporary (the
     float64 fused step over every slot) stays within `REF_CHUNK_BYTES`; the
     tiles are independent, so the chunking does not change the result."""
-    dev = coeff_mat.device
     tx, ty = (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
     if tile_list.shape[0] != tx * ty:
         raise ValueError(f"{tile_list.shape[0]} tile rows for a {width}×{height} image")
+    depth, vid = rasterize_reference_tiles(coeff_mat, tile_list, width, tile_base)
+    return _untile(depth, width, height), _untile(vid, width, height)
+
+
+def rasterize_reference_tiles(coeff_mat: Tensor, tile_list: Tensor, width: int,
+                              tile_base: int = 0) -> tuple[Tensor, Tensor]:
+    """`rasterize_reference` left in the tiles' layout: (depth, vid)
+    (T, 64²), row t the pixels of the image's tile t + `tile_base`, which may
+    be any run of tiles (a block of the tile list split by tiles, not rows),
+    tiles past the image included."""
+    dev = coeff_mat.device
+    if int(tile_base) < 0:
+        raise ValueError(f"tile_base={tile_base}: a band starts at a tile id >= 0")
+    tx = (width + TILE - 1) // TILE
     if coeff_mat.shape[0] == 0:
         tile_list = tile_list[:, :0]
     lin = torch.arange(TILE * TILE, device=dev)
     lx, ly = lin % TILE, torch.div(lin, TILE, rounding_mode="floor")
 
     def planes(blk: Tensor, tg: Tensor, n: int) -> Tensor:
+        tg = tg + int(tile_base)
         px = ((tg % tx) * TILE)[:, None, None, None] + lx
         py = (torch.div(tg, tx, rounding_mode="floor") * TILE)[:, None, None, None] + ly
         return _fma_planes(px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5, blk, n)
 
     chunk = max(1, REF_CHUNK_BYTES // (coeff_mat.shape[-1] * TILE * TILE * 8))
     pairs = walk_live_pairs(coeff_mat, tile_list, tile_list >= 0, planes, chunk)
-    return fold_live_pairs(pairs, tx * ty, width, height, dev)
+    return fold_live_pairs_tiled(pairs, tile_list.shape[0], dev)
 
 
 def run_tiles(entries, comb, counts, near_r, width, height, tile=TILE, tile_base=0):
@@ -521,10 +548,13 @@ def rasterize_gbuffer_tiles(blocks: dict, counts: Tensor, width: int, height: in
                      blocks["near_r"], width, height, tile, tile_base)
 
 
-def gbuffer_from_raster(gb: Tensor, vid: Tensor, depth: Tensor, inv_view_proj: Tensor) -> dict[str, Tensor]:
+def gbuffer_from_raster(gb: Tensor, vid: Tensor, depth: Tensor, inv_view_proj: Tensor, row_offset: float = 0.0,
+                        full_height: int | None = None) -> dict[str, Tensor]:
     """Unpack the (H, W, 16) bf16 attribute image into the G-buffer dict; world
     position is reconstructed from the f32 depth through the inverse
-    view-projection."""
+    view-projection. For a band of a taller image, `row_offset` is the global
+    row of the band's first row and `full_height` the image's height (the
+    NDC rows are the image's)."""
     hit = vid >= 0
     hitf = hit[..., None]
     g = lambda sl: gb[sl].to(torch.float32)
@@ -532,7 +562,10 @@ def gbuffer_from_raster(gb: Tensor, vid: Tensor, depth: Tensor, inv_view_proj: T
     nrm = nrm / torch.clamp(torch.sqrt(torch.sum(nrm * nrm, dim=-1, keepdim=True)), min=1e-9)
     h, w = depth.shape
     ndc_x = (torch.arange(w, dtype=torch.float32, device=depth.device)[None, :] + 0.5) * (2.0 / w) - 1.0
-    ndc_y = (torch.arange(h, dtype=torch.float32, device=depth.device)[:, None] + 0.5) * (2.0 / h) - 1.0
+    fh = h if full_height is None else full_height
+    rows = torch.full((), float(row_offset), device=depth.device) + torch.arange(h, dtype=torch.float32,
+                                                                                 device=depth.device)
+    ndc_y = (rows[:, None] + 0.5) * (2.0 / fh) - 1.0
     m = inv_view_proj
     hx = m[0, 0] * ndc_x + m[0, 1] * ndc_y + m[0, 2] * depth + m[0, 3]
     hy = m[1, 0] * ndc_x + m[1, 1] * ndc_y + m[1, 2] * depth + m[1, 3]

@@ -36,6 +36,7 @@ from ..assets.material import (
     FLAG_HAS_NORMAL,
     FLAG_HAS_OCCLUSION,
 )
+from ..render.debugdraw import to_int32_saturating
 
 Tensor = torch.Tensor
 
@@ -55,7 +56,8 @@ def sample_atlas_bilinear(atlas: Tensor, rect: Tensor, uv: Tensor, sampling_mode
     the normalised rects `rect` (..., 4) = (u0, v0, u1, v1): the UV wrapped by
     `sampling_mode` (0/4 repeat, 1/3 clamp; None: repeat), then bilinear, or
     the nearest texel for modes 2 and 3, each tap clamped inside the rect's
-    texels and the atlas. Returns (..., 4) f32 in [0, 1]."""
+    texels and the atlas (cast to int32 saturating, as XLA casts). Returns
+    (..., 4) f32 in [0, 1]."""
     a = atlas.shape[0]
     if sampling_mode is None:
         sampling_mode = torch.zeros(uv.shape[:-1], dtype=torch.int32, device=uv.device)
@@ -73,10 +75,12 @@ def sample_atlas_bilinear(atlas: Tensor, rect: Tensor, uv: Tensor, sampling_mode
     rx1 = torch.floor(u1 * a - 0.5)
     ry1 = torch.floor(v1 * a - 0.5)
 
+    div = torch.full((), 255.0, device=atlas.device)
+
     def tap(xi: Tensor, yi: Tensor) -> Tensor:
-        x = torch.clamp(torch.minimum(torch.maximum(xi, rx0), rx1).to(torch.int32), 0, a - 1)
-        y = torch.clamp(torch.minimum(torch.maximum(yi, ry0), ry1).to(torch.int32), 0, a - 1)
-        return atlas[y.long(), x.long()].to(torch.float32) / 255.0
+        x = torch.clamp(to_int32_saturating(torch.minimum(torch.maximum(xi, rx0), rx1)), 0, a - 1)
+        y = torch.clamp(to_int32_saturating(torch.minimum(torch.maximum(yi, ry0), ry1)), 0, a - 1)
+        return atlas[y.long(), x.long()].to(torch.float32) / div
 
     nearest = (sampling_mode == 2) | (sampling_mode == 3)
     c00 = tap(x0, y0)
@@ -91,8 +95,9 @@ def sample_atlas_bilinear(atlas: Tensor, rect: Tensor, uv: Tensor, sampling_mode
 def pack_atlas_taps(atlas: Tensor, dtype=torch.float32) -> Tensor:
     """(A·A, 16) rows [c00 rgba | c10 | c01 | c11] of the atlas in [0, 1]:
     each texel with its right, lower and lower-right neighbours (the last row
-    and column repeat)."""
-    a = atlas.to(torch.float32) / 255.0
+    and column repeat). The divisor is a scalar on the atlas's device: CUDA
+    divides by a CPU scalar as a product with its reciprocal."""
+    a = atlas.to(torch.float32) / torch.full((), 255.0, device=atlas.device)
     right = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
     down = torch.cat([a[1:], a[-1:]], dim=0)
     down_right = torch.cat([down[:, 1:], down[:, -1:]], dim=1)

@@ -62,6 +62,28 @@ PLANE_SC = 16         # scalars per plane in the scalar block
 HUB_MIN_FACE_AREA = 25.0  # m²: static boxes with a larger face become analytic planes
 
 
+def _part1by1(x: Tensor) -> Tensor:
+    """Spread the low 16 bits of x so there is a zero bit between each."""
+    x = x & 0xFFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def morton_rank_key(ps: PhysicsState, exclude: Tensor | None = None) -> Tensor:
+    """Sort key: inactive (and excluded hub) bodies last, others by Morton(x, z)
+    cell (vertical columns stay rank-adjacent under y-gravity)."""
+    lo = ps.pos.min(0).values
+    hi = ps.pos.max(0).values
+    span = torch.clamp(hi - lo, min=1e-3)
+    qx = torch.clamp((ps.pos[:, 0] - lo[0]) / span[0] * 1023.0, 0, 1023).to(torch.int32)
+    qz = torch.clamp((ps.pos[:, 2] - lo[2]) / span[2] * 1023.0, 0, 1023).to(torch.int32)
+    morton = _part1by1(qx) | (_part1by1(qz) << 1)
+    last = ~ps.active if exclude is None else (~ps.active) | exclude
+    return morton + last.to(torch.int32) * (1 << 22)
+
+
 def slab_rank_key(ps: PhysicsState, exclude: Tensor | None = None) -> Tensor:
     """x-slab-major, z-minor sort key (f32), computed in the JAX module's order.
     Slab width ≈ 1.1 mean body diameters, so each slab holds about one body

@@ -520,6 +520,24 @@ def narrowphase(ps: PhysicsState, params: PhysicsParams, ia: Tensor, ib: Tensor,
 # Solver
 # ---------------------------------------------------------------------------
 
+def make_segment_reducer(idx: Tensor, num_segments: int):
+    """Sort-based segmented sum (the JAX package's scatter-free reduction):
+    the rows are sorted by segment once, and each reduction is a gather, a
+    cumulative sum and the differences at the segment bounds. Returns
+    reduce(values (C, …)) → (num_segments, …)."""
+    sorted_idx, order = torch.sort(idx, stable=True)
+    seg_ids = torch.arange(num_segments, dtype=sorted_idx.dtype, device=idx.device)
+    ends = torch.searchsorted(sorted_idx, seg_ids, right=True)
+    starts = torch.searchsorted(sorted_idx, seg_ids, right=False)
+
+    def reduce(values: Tensor) -> Tensor:
+        csum = torch.cumsum(values[order], dim=0)
+        csum = torch.cat([torch.zeros_like(csum[:1]), csum], dim=0)
+        return csum[ends] - csum[starts]
+
+    return reduce
+
+
 def _world_inv_inertia(ps: PhysicsState) -> Tensor:
     rot = math3d.quat_to_mat3(ps.quat)
     return torch.einsum("bij,bj,bkj->bik", rot, ps.inv_inertia, rot)

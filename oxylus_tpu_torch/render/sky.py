@@ -282,6 +282,36 @@ def sky_ambient(lut: Tensor) -> Tensor:
     return torch.mean(lut[lut.shape[0] // 2 :], dim=(0, 1))
 
 
+def aerial_perspective(
+    params: AtmosphereParams, trans_lut: Tensor, ms_lut: Tensor, world_pos: Tensor, hit: Tensor,
+    camera_pos: Tensor, sun_dir: Tensor, sun_intensity=10.0, meters_per_km: float = 1000.0,
+    start_km: float = 0.0, steps: int = 8,
+) -> tuple[Tensor, Tensor]:
+    """Per-pixel aerial perspective (the froxel LUT's march evaluated directly
+    at each pixel): returns (in_scatter (H, W, 3), transmittance (H, W, 3)) to
+    composite as `color * T + L` for pixels beyond `start_km`."""
+    dev = world_pos.device
+    rel = (world_pos - camera_pos[None, None, :]) / meters_per_km  # km
+    dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    dirn = rel / torch.clamp(dist, min=1e-6)[..., None]
+    march = torch.clamp(dist - start_km, min=0.0)
+    r0 = GROUND_RADIUS_KM + torch.clamp(camera_pos[1] / meters_per_km, min=0.01)
+    mu = dirn[..., 1]
+    cos_theta = torch.sum(dirn * sun_dir[None, None, :], dim=-1)
+    ph_r = _phase_rayleigh(cos_theta)
+    ph_m = _phase_mie(cos_theta, params.mie_asymmetry)
+    dt = march / steps
+    lum = torch.zeros(world_pos.shape[:2] + (3,), device=dev)
+    trans_acc = torch.ones(world_pos.shape[:2] + (3,), device=dev)
+    for s_ in range(steps):
+        t = (s_ + 0.5) * dt + start_km
+        lum, trans_acc = _march_step(params, trans_lut, ms_lut, r0, mu, sun_dir[1], cos_theta, ph_r, ph_m, t,
+                                     dt[..., None], lum, trans_acc)
+    lum = lum * sun_intensity
+    hitf = hit[..., None]
+    return torch.where(hitf, lum, 0.0), torch.where(hitf, trans_acc, 1.0)
+
+
 def aerial_lut(
     params: AtmosphereParams, trans_lut: Tensor, ms_lut: Tensor, camera_height_km: Tensor, sun_dir: Tensor,
     sun_intensity=10.0, max_km: float = 4.0,

@@ -1,7 +1,8 @@
 """Image-plane helpers (counterpart of `oxylus_tpu/utils/imgops.py`, the subset
 the 3D frame uses).
 
-`resize_linear` is `jax.image.resize(img, shape, method="linear")` for the
+`max_downsample` is the JAX module's max-pooled downsample. `resize_linear`
+is `jax.image.resize(img, shape, method="linear")` for the
 upsamplings the frame does (the reduced-resolution shadow, contact-shadow,
 AO, SSR and aerial terms back to full size). For an upsampling the JAX
 resize's triangle kernel has radius one input texel, the output centre
@@ -26,6 +27,21 @@ def point_downsample(img: Tensor, k: int) -> Tensor:
     if k == 1:
         return img
     return img[::k, ::k]
+
+
+def max_downsample(img: Tensor, k: int) -> Tensor:
+    """Max-pooled k× downsample of (H, W, ...) over whole k×k windows (the
+    trailing rows and columns that fill no window dropped): for reverse-Z depth
+    (the nearest surface wins) and boolean coverage masks."""
+    if k == 1:
+        return img
+    h, w = img.shape[0] // k, img.shape[1] // k
+    x = img[: h * k, : w * k]
+    was_bool = x.dtype == torch.bool
+    if was_bool:
+        x = x.to(torch.float32)
+    out = x.reshape((h, k, w, k) + tuple(x.shape[2:])).amax(dim=(1, 3))
+    return out > 0.5 if was_bool else out
 
 
 def resize_linear(img: Tensor, shape: tuple[int, ...]) -> Tensor:

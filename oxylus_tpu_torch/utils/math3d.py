@@ -178,6 +178,15 @@ def mat4_transform_dir(m: Tensor, d: Tensor) -> Tensor:
     return dot_fma(m[..., :3, :3], d[..., None, :])
 
 
+def mat4_decompose(m: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """mat4 → (translation, quat, scale). Assumes no shear/negative scale."""
+    t = m[..., :3, 3]
+    basis = m[..., :3, :3]
+    s = torch.sqrt(torch.sum(basis * basis, dim=-2))  # column norms
+    rot = basis / torch.clamp(s[..., None, :], min=1e-12)
+    return t, mat3_to_quat(rot), s
+
+
 def look_at(eye: Tensor, center: Tensor, up: Tensor) -> Tensor:
     """Right-handed lookAt matching glm::lookAt."""
     f = center - eye
@@ -227,6 +236,10 @@ def mat4_inverse(m: Tensor) -> Tensor:
     return torch.linalg.inv(m)
 
 
+def aabb_union(min_a: Tensor, max_a: Tensor, min_b: Tensor, max_b: Tensor) -> tuple[Tensor, Tensor]:
+    return torch.minimum(min_a, min_b), torch.maximum(max_a, max_b)
+
+
 def aabb_transform(m: Tensor, bmin: Tensor, bmax: Tensor) -> tuple[Tensor, Tensor]:
     """Transform an AABB by an affine matrix → world AABB (Arvo's method)."""
     center = (bmin + bmax) * 0.5
@@ -251,6 +264,15 @@ def aabb_vs_frustum(planes: Tensor, bmin: Tensor, bmax: Tensor) -> Tensor:
     d = dot_fma(planes[..., :3], center[..., None, :]) + planes[..., 3]
     r = dot_fma(torch.abs(planes[..., :3]), extent[..., None, :])
     return torch.all(d + r >= 0.0, dim=-1)
+
+
+def srgb_to_linear(c: Tensor) -> Tensor:
+    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(c: Tensor) -> Tensor:
+    c = torch.clamp(c, min=0.0)
+    return torch.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
 
 
 def mat4_point_image(m: Tensor, p: Tensor) -> Tensor:

@@ -8,7 +8,8 @@
   coverage, and the end state is finite.
 - The compact route's drop gate fails when one neighbour slot per body drops
   most pairs (`OX_BENCH_RSLOTS=1`), as `bench.py`'s assert does.
-- `worlds > 1` is refused, from the argument and from `OX_BENCH_WORLDS`.
+- `worlds=2` steps two copies (each equal to the one-world run) and
+  `OX_BENCH_WORLDS` reaches the cell; `worlds=0` is refused.
 - `run_physics` and `run_physics10k` call `bench_physics` with the JAX
   cells' configurations and turn a rate into the JAX cells' dicts: the JAX
   bench runs in a subprocess with its `bench_physics` replaced by a stub (so
@@ -76,11 +77,23 @@ def test_compact_drop_gate_fails_with_one_slot(monkeypatch):
 
 
 def test_worlds_above_one_are_refused(monkeypatch):
+    """Worlds above one run side by side (`worlds=2` reports 2 worlds, each
+    equal to the one-world run, the rate over both) and `OX_BENCH_WORLDS`
+    reaches the cell; fewer than one world is refused."""
+    one = bench.bench_physics(**SMALL, **ROUTES["compact"])
+    two = bench.bench_physics(**SMALL, **ROUTES["compact"], worlds=2)
+    assert two["worlds"] == 2 and two["rate"] > 0 and "dropped" not in two and "coverage_end" not in two
+    assert two["state"].pos.shape == (2,) + tuple(one["state"].pos.shape)
+    for w in range(2):
+        np.testing.assert_array_equal(two["state"].pos[w].numpy(), one["state"].pos.numpy())
+        np.testing.assert_array_equal(two["state"].linvel[w].numpy(), one["state"].linvel.numpy())
     with pytest.raises(ValueError):
-        bench.bench_physics(worlds=2, device="cpu")
+        bench.bench_physics(worlds=0, device="cpu")
+    seen = []
+    monkeypatch.setattr(bench, "bench_physics", lambda **kw: seen.append(kw) or {"rate": 1.0, "worlds": kw["worlds"],
+                                                                                 "n_bodies": 1023})
     monkeypatch.setenv("OX_BENCH_WORLDS", "4")
-    with pytest.raises(ValueError):
-        bench.run_physics(device="cpu")
+    assert "4x1023 bodies" in bench.run_physics(device="cpu")["metric"] and seen[0]["worlds"] == 4
 
 
 JAX_CELLS = """

@@ -2,7 +2,8 @@
 its texture tiles, the sort keys and the sprite sort against the JAX package.
 
 - `resample_texture_tiles`: both JAX atlas branches (one-hot products for
-  atlases ≤ 256, the gather above) against the port's gather, exactly.
+  atlases ≤ 256, the gather above) against the port's gather, exactly, also
+  with rects past the int32 range once scaled (both saturate).
 - `build_sprite_texture_tiles` on seeded per-sprite materials (scrolling,
   negative uv offsets, some just below an integer; rects partly outside
   [0, 1] and past the int32 range once scaled) at atlases of 64 and 512 px,
@@ -57,6 +58,29 @@ def test_resample_texture_tiles_matches_jax(atlas_size):
     got = blend2d.resample_texture_tiles(torch.from_numpy(packed), torch.from_numpy(atlas)).numpy()
     assert got.shape == want.shape == (s, 16, 16, 4)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("atlas_size", [64, 512])
+def test_resample_texture_tiles_saturates_past_int32_as_jax(atlas_size):
+    """Rect coordinates past the int32 range once scaled by the atlas: XLA's
+    cast saturates, and so must the port's (a bare CPU cast gives INT_MIN,
+    which the clamp would send to texel 0 instead of the last one)."""
+    rng = np.random.default_rng(atlas_size + 7)
+    s = 12
+    packed = np.zeros((s, 29), np.float32)
+    packed[:, 21:23] = rng.uniform(0.1, 1.0, (s, 2))
+    packed[:, 23:25] = rng.uniform(-0.5, 0.5, (s, 2))
+    lo = rng.uniform(0, 0.5, (s, 2))
+    packed[:, 25:27] = lo
+    packed[:, 27:29] = lo + 0.25
+    packed[0, 27], packed[1, 25], packed[2, 28], packed[3, 26] = 1e12, -1e12, 3e9, 5e10
+    packed[4, 25:29] = 2e10  # the whole window past INT32_MAX
+    atlas = rng.integers(0, 256, (atlas_size, atlas_size, 4), dtype=np.uint8)
+    want = np.asarray(jresample(jnp.asarray(packed), jnp.asarray(atlas)))
+    got = blend2d.resample_texture_tiles(torch.from_numpy(packed), torch.from_numpy(atlas)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[4], np.broadcast_to(atlas[-1, -1] / np.float32(255.0), (16, 16, 4)))
+    assert torch.tensor([2e10 * atlas_size], dtype=torch.float32).to(torch.int32).item() != 2**31 - 1
 
 
 @pytest.mark.parametrize("atlas_size", [64, 512])

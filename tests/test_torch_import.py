@@ -102,6 +102,9 @@ SLICE_MODULES = [
     "oxylus_tpu_torch.editor.gizmo",
     "oxylus_tpu_torch.editor.panels",
     "oxylus_tpu_torch.editor.workspace",
+    "oxylus_tpu_torch.parallel",
+    "oxylus_tpu_torch.parallel.sharding",
+    "oxylus_tpu_torch.parallel.dryrun",
 ]
 
 PROBE = f"""
