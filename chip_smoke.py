@@ -1006,7 +1006,7 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
                      **{f"roll.{k}": v for k, v in roll_counts.items()}}
     print(f"[14] probes.run_all: {len(lines)} probes in {wall:.2f} s ({card}); launches {counts}; by kernel "
           f"{kernel_counts}", flush=True)
-    check(len(lines) == 26, f"run_all gave {len(lines)} probe lines, not 26")
+    check(len(lines) == 24, f"run_all gave {len(lines)} probe lines, not 24")
     for r in lines:
         if r["name"].startswith("matmul"):
             check(r["tflops"] <= r["peak_tflops"], f"{r['name']}: {r['tflops']:.1f} TFLOP/s above the data sheet's "
@@ -1015,7 +1015,7 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
         check(n > 0, f"the probe run never launched a kernel of {name}")
     for kernel in mosaic_ops.OPS:
         check(mosaic_counts.get(kernel, 0) > 0, f"the probe run never launched mosaic_ops' {kernel} kernel")
-    roll_kernels = ("roll_chain", "roll_chain_smem", "vector_chain", "matmul_f32", "matmul_bf16", "argmax_extract",
+    roll_kernels = ("roll_chain", "roll_last", "vector_chain", "matmul_f32", "matmul_bf16", "argmax_extract",
                     "dynamic_trip")
     for kernel in roll_kernels:
         check(roll_counts.get(kernel, 0) > 0, f"the probe run never launched roll's {kernel} kernel")
@@ -1031,10 +1031,12 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
         fin = torch.isfinite(want)
         return (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
 
-    def exact(label, got, want) -> float:
+    def exact(label, got, want, bits=False) -> float:
+        """Max abs error, which must be 0; with `bits`, the same bits too (-0 apart from +0, NaN's payload)."""
         err = diff(got, want)
         print(f"[14] {label}: max abs err {err}", flush=True)
         check(err == 0.0, f"{label}: kernel != plain")
+        check(not bits or torch.equal(got.view(torch.int32), want.view(torch.int32)), f"{label}: other bits than plain")
         return err
 
     def within(label, got, want, tol) -> float:
@@ -1107,7 +1109,7 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
     errs = collections.defaultdict(float)
     for name, kernel, args in mosaic_ops.script_cases(dev) + mosaic_ops.seeded_cases(41, dev):
         errs[kernel] = max(errs[kernel], exact(f"mosaic_ops {name}", mosaic_ops.run_case(kernel, args),
-                                               mosaic_ops.plain_case(kernel, args)))
+                                               mosaic_ops.plain_case(kernel, args), bits=kernel == "sort"))
     cases = {}
     for name, kernel, args in mosaic_ops.script_cases(dev):
         cases.setdefault(kernel, args)
@@ -1147,18 +1149,24 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
     xs = proll.script_x(dev)
     xr = proll.seeded_x(51, (37, 128), dev)
     for label, xv in (("script", xs), ("seed 51, 37 rows", xr), ("seed 51 x3 rounded, ties", torch.round(xr * 3))):
-        for via, key in (("shuffle", "roll_chain"), ("smem", "roll_chain_smem")):
-            for shift in (5, -133, 517):
-                errs[key] = max(errs[key], exact(
-                    f"dynamic roll {shift} via {via}, {label}", proll.dynamic_roll(xv, proll.scalar(shift, dev), via),
-                    proll.roll_chain_reference(xv, 1, shift, accumulate=False)))
-            errs[key] = max(errs[key], exact(
-                f"static roll x{proll.N_INNER} via {via}, {label}", proll.roll_chain(xv, proll.N_INNER, via=via),
-                proll.roll_chain_reference(xv, proll.N_INNER, 1)))
-            errs[key] = max(errs[key], exact(
-                f"dynamic roll x{proll.N_INNER} via {via}, {label}",
-                proll.dynamic_roll_chain(xv, proll.N_INNER, proll.scalar(proll.DYN_BASE, dev), via=via),
-                proll.roll_chain_reference(xv, proll.N_INNER, proll.DYN_BASE, proll.DYN_STEP)))
+        for shift in (5, -133, 517):
+            errs["roll_last"] = max(errs["roll_last"], exact(
+                f"dynamic roll {shift}, {label}", proll.dynamic_roll(xv, proll.scalar(shift, dev)),
+                proll.roll_chain_reference(xv, 1, shift, accumulate=False)))
+        errs["roll_chain"] = max(errs["roll_chain"], exact(
+            f"static roll x{proll.N_INNER}, {label}", proll.roll_chain(xv, proll.N_INNER),
+            proll.roll_chain_reference(xv, proll.N_INNER, 1)))
+        errs["roll_chain"] = max(errs["roll_chain"], exact(
+            f"dynamic roll x{proll.N_INNER}, {label}",
+            proll.dynamic_roll_chain(xv, proll.N_INNER, proll.scalar(proll.DYN_BASE, dev)),
+            proll.roll_chain_reference(xv, proll.N_INNER, proll.DYN_BASE, proll.DYN_STEP)))
+        # every count of distinct shifts the kernel is built for (D = min(step_mod, 128)), 300 adds: a tail past
+        # the last full trip of max(D, 8)
+        for step_mod in (2, 8, 16, 32, 64, 128, 256):
+            errs["roll_chain"] = max(errs["roll_chain"], exact(
+                f"dynamic roll x300 step {step_mod}, base 517, {label}",
+                proll.dynamic_roll_chain(xv, 300, proll.scalar(517, dev), step_mod),
+                proll.roll_chain_reference(xv, 300, 517, step_mod)))
         for n_iter in (1, 2, proll.N_INNER):
             errs["vector_chain"] = max(errs["vector_chain"], exact(
                 f"vector chain x{n_iter}, {label}", proll.vector_chain(xv, n_iter),
@@ -1196,25 +1204,39 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
                   f"{plan['grid']} CTAs, {plan['parts']} partials, {plan['smem_bytes']} B of shared memory", flush=True)
             check(same, f"{label}: two runs differ")
     n_el = xs.numel()
-    for via, key in (("shuffle", "roll_chain"), ("smem", "roll_chain_smem")):
-        t = timed(f"{key} static x{proll.N_INNER} (8, 128)", lambda: proll.roll_chain(xs, proll.N_INNER, via=via),
-                  lambda: proll.roll_chain_reference(xs, proll.N_INNER, 1), 2 * n_el * 4, proll.N_INNER * n_el,
+    t_vec = timed(f"vector_chain x{proll.N_INNER} (8, 128)", lambda: proll.vector_chain(xs, proll.N_INNER),
+                  lambda: proll.vector_chain_reference(xs, proll.N_INNER), 2 * n_el * 4, 8 * proll.N_INNER * n_el,
                   plain_reps=2)
-        print(f"[14] {key}: {t[0] * 1e6 / proll.N_INNER:.3f} ns per rotate-and-add of the (8, 128) block ({card})",
-              flush=True)
-        row(f"probe_{key}", "roll.cu", "scripts/probe_roll.py:56", roll_counts.get(key, 0), errs[key], t)
-    t = timed(f"vector_chain x{proll.N_INNER} (8, 128)", lambda: proll.vector_chain(xs, proll.N_INNER),
-              lambda: proll.vector_chain_reference(xs, proll.N_INNER), 2 * n_el * 4, 8 * proll.N_INNER * n_el,
+    t = timed(f"roll_chain static x{proll.N_INNER} (8, 128)", lambda: proll.roll_chain(xs, proll.N_INNER),
+              lambda: proll.roll_chain_reference(xs, proll.N_INNER, 1), 2 * n_el * 4, proll.N_INNER * n_el,
               plain_reps=2)
+    # the static chain is N_INNER dependent adds an element: in a graph it takes at least their latency, which the
+    # vector chain's 8 dependent operations an iteration give; a time under 0.8 of that means adds were skipped
+    op_ns = t_vec[0] * 1e6 / (8 * proll.N_INNER)
+    chain_floor = proll.N_INNER * op_ns * 1e-6
+    print(f"[14] roll_chain: {t[0] * 1e6 / proll.N_INNER:.3f} ns an iteration of the (8, 128) block; dependent-op "
+          f"latency {op_ns:.4f} ns (the (8, 128) vector chain / {8 * proll.N_INNER}), so the chain's floor "
+          f"{chain_floor:.6f} ms: {t[0] / chain_floor:.3f}x it ({card})", flush=True)
+    check(t[0] >= 0.8 * chain_floor, f"roll_chain: {t[0]:.6f} ms under 0.8x its {proll.N_INNER}-add chain's latency "
+                                     f"{chain_floor:.6f} ms: adds skipped?")
+    row("probe_roll_chain", "roll.cu", "scripts/probe_roll.py:56", roll_counts.get("roll_chain", 0),
+        errs["roll_chain"], t)
+    shift5 = proll.scalar(proll.DYN_SHIFT, dev)
+    # the library call takes its shift from the host; the kernel reads it on the card
+    t = timed("roll_last: one roll by a shift read on the card (8, 128)", lambda: proll.dynamic_roll(xs, shift5),
+              lambda: proll.roll_chain_reference(xs, 1, proll.DYN_SHIFT, accumulate=False), 2 * n_el * 4 + 4, 0,
+              library_fn=lambda: torch.roll(xs, proll.DYN_SHIFT, 1))
+    row("probe_roll_last", "roll.cu", "scripts/probe_roll.py:41", roll_counts.get("roll_last", 0),
+        errs["roll_last"], t)
     row("probe_vector_chain", "roll.cu", "scripts/probe_roll.py:76", roll_counts.get("vector_chain", 0),
-        errs["vector_chain"], t)
+        errs["vector_chain"], t_vec)
     t_big = timed(f"vector_chain x{proll.VPU_BIG_ITERS} (128, 384)",
                   lambda: proll.vector_chain(xb, proll.VPU_BIG_ITERS),
                   lambda: proll.vector_chain_reference(xb, proll.VPU_BIG_ITERS), 2 * xb.numel() * 4,
                   8 * proll.VPU_BIG_ITERS * xb.numel(), plain_reps=2)
-    print(f"[14] vector chain rates: (8, 128) x{proll.N_INNER} {8 * proll.N_INNER * n_el / t[0] / 1e9:.4f} TFLOP/s, "
-          f"(128, 384) x{proll.VPU_BIG_ITERS} {8 * proll.VPU_BIG_ITERS * xb.numel() / t_big[0] / 1e9:.4f} TFLOP/s "
-          f"of 67 ({card})", flush=True)
+    print(f"[14] vector chain rates: (8, 128) x{proll.N_INNER} {8 * proll.N_INNER * n_el / t_vec[0] / 1e9:.4f} "
+          f"TFLOP/s, (128, 384) x{proll.VPU_BIG_ITERS} "
+          f"{8 * proll.VPU_BIG_ITERS * xb.numel() / t_big[0] / 1e9:.4f} TFLOP/s of 67 ({card})", flush=True)
     m_, k_, n_ = 1024, 1024, 128
     for dtype, kname, line in ((torch.float32, "matmul_f32", 109), (torch.bfloat16, "matmul_bf16", 109)):
         a, b = torch.ones(m_, k_, dtype=dtype, device=dev), torch.ones(k_, n_, dtype=dtype, device=dev)
@@ -1253,6 +1275,16 @@ def probe_phase(dev, card: str, other_mods) -> list[dict]:
               lambda: proll.dynamic_trip_reference(xs, proll.DYN_TRIP), 2 * n_el * 4 + 4, proll.DYN_TRIP * n_el)
     row("probe_dynamic_trip", "roll.cu", "scripts/probe_roll.py:139", roll_counts.get("dynamic_trip", 0),
         errs["dynamic_trip"], t)
+    # the probes' floors: a launch (the least graph time of this phase's kernels) and their dependent chains at
+    # op_ns a dependent operation
+    low = min(rows, key=lambda r: r["ms"])
+    print(f"[14] launch floor {low['ms']:.6f} ms ({low['name']}); each kernel's graph time over it: "
+          f"{ {r['name']: round(r['ms'] / low['ms'], 3) for r in rows} } ({card})", flush=True)
+    chains = {"roll_chain": proll.N_INNER, "vector_chain (8, 128)": 8 * proll.N_INNER,
+              "vector_chain (128, 384)": 8 * proll.VPU_BIG_ITERS, "dynamic_trip": proll.DYN_TRIP}
+    print(f"[14] dependent-chain floors at {op_ns:.4f} ns an operation: "
+          f"{ {k: f'{n} ops, {n * op_ns * 1e-6:.6f} ms' for k, n in chains.items()} }; the (128, 384) vector chain "
+          f"took {t_big[0]:.6f} ms ({card})", flush=True)
     return rows
 
 

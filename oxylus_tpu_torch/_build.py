@@ -130,7 +130,7 @@ def load_kernel_library() -> ctypes.CDLL:
             ("probe_argmax_rows", [vp, vp, ci, ci]),
             ("probe_roll_lanes", [vp, vp, ci, ci, ci]),
             ("probe_bf16_mul_add", [vp, vp, ctypes.c_longlong]),
-            ("probe_roll_chain", [vp, vp, ci, ci, vp, ci, ci, ci, ci]),
+            ("probe_roll_chain", [vp, vp, ci, ci, vp, ci, ci, ci]),
             ("probe_vector_chain", [vp, vp, ci, ci]),
             ("probe_matmul_f32", [vp, vp, vp, vp] + [ci] * 10),
             ("probe_matmul_bf16", [vp, vp, vp, vp] + [ci] * 10),

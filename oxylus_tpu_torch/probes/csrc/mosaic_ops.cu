@@ -14,19 +14,31 @@
 //
 // What bounds them on the card: bytes, and at the script's sizes (a 192 KB
 // (128, 384) float32 block, 0.1 us at 3.35 TB/s) the launch latency. The
-// sort's comparisons, R * 512 * 45 for the bitonic network, take 0.04 us of
-// the SMs' float32 rate.
+// sort's R * 256 * 45 compare-exchanges (the bitonic network of the padded
+// 512-key row) are a fraction of a microsecond of the SMs' rate; a row's 45
+// stages run one after another, so their latency is the sort's floor.
 //
-// What the design does about it: one block per row (per column for the axis-0
-// scan, which reads with the row stride), coalesced along the row; the roll a
+// What the design does about it: the gathers, the scan and argmax run one
+// block per row (per column for the axis-0 scan, which reads with the row
+// stride), coalesced along the row; the roll a
 // thread per 16-byte chunk of the output where the rows allow it (else per
 // element), 256 a block over several rows. The scan is
 // a Hillis-Steele scan by shuffles in each warp, then of the warp totals, the
 // order oxylus_tpu_torch/probes/mosaic_ops.py::cumsum_reference repeats, so the
-// two agree bit for bit. The sort is a bitonic network of the next power of two
-// keys in shared memory, padded with a key above every float; floats map to
-// order-preserving unsigned keys, NaN above +inf. Argmax reduces (value,
-// index) pairs with shuffles and one shared-memory step across warps.
+// two agree bit for bit. Argmax reduces (value, index) pairs with shuffles and
+// one shared-memory step across warps. The sort maps floats to
+// order-preserving unsigned keys (NaN above +inf, -0 below +0), pads the row
+// to P = the power of two >= max(n, 32) with a key above every float, and
+// sorts it with a bitonic network in one warp, the keys in registers: lane l
+// holds keys l*K .. l*K + K - 1, K = P / 32 (64 for the widest rows, 2048).
+// A stage whose stride is below K is compare-exchanges inside each thread;
+// a wider one pairs lane l with lane l ^ (stride / K) by shfl.xor. From
+// merge width K on a lane's keys share one direction, so a descending lane
+// complements them for the phase (reversing their order) and every stage is
+// a plain min and max. A lane's keys move as float4 where the row allows. No
+// shared memory and no barrier: one warp a block, a block a row, so up to 132
+// rows take an SM each. Any sorting network gives the same keys, so the
+// output's bits are those of the sorted keys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,27 +113,89 @@ __device__ __forceinline__ float key_float(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// One block of p/2 threads per row; p the power of two >= n.
-__global__ void __launch_bounds__(MAX_SORT / 2) sort_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                                            int n, int p) {
-  __shared__ uint32_t keys[MAX_SORT];
-  const size_t row = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) keys[i] = i < n ? float_key(x[row + i]) : PAD_KEY;
-  __syncthreads();
-  const int i = threadIdx.x;
-  for (int k = 2; k <= p; k *= 2) {
-    for (int j = k / 2; j > 0; j /= 2) {
-      const int a = 2 * j * (i / j) + i % j, b = a + j;
-      const bool ascending = (a & k) == 0;
-      const uint32_t ka = keys[a], kb = keys[b];
-      if ((ka > kb) == ascending) {
-        keys[a] = kb;
-        keys[b] = ka;
+// The stages of one phase of the bitonic network (merge width k), strides j =
+// k/2 .. 1, on key i of the padded row at lane i / K, slot i % K, and its
+// partner i ^ j. Below K a phase's direction is the slot's ((q & k) == 0);
+// from K on it is the lane's, and a descending lane has complemented its keys
+// (sort_phases), so every stage sorts ascending: the lower index keeps the
+// smaller key.
+template <int K, int k, int j>
+__device__ __forceinline__ void sort_stages(uint32_t (&key)[K], int lane) {
+  if constexpr (j > 0) {
+    if constexpr (j < K) {  // inside the thread: slots q and q | j
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        if (q & j) continue;
+        const bool up = k >= K || (q & k) == 0;
+        const uint32_t a = key[q], b = key[q | j], lo = a < b ? a : b, hi = a < b ? b : a;
+        key[q] = up ? lo : hi;
+        key[q | j] = up ? hi : lo;
       }
-      __syncthreads();
+    } else {  // between lanes l and l ^ (j / K)
+      const bool lower = (lane & (j / K)) == 0;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const uint32_t a = key[q], b = __shfl_xor_sync(FULL, a, j / K);
+        key[q] = lower == (a < b) ? a : b;
+      }
+    }
+    sort_stages<K, k, j / 2>(key, lane);
+  }
+}
+
+// The phases k = 2 .. 32 * K. From K on, a lane whose k-block descends
+// ((lane * K) & k != 0) complements its keys for the phase, which reverses
+// their order.
+template <int K, int k>
+__device__ __forceinline__ void sort_phases(uint32_t (&key)[K], int lane) {
+  if constexpr (k <= 32 * K) {
+    const uint32_t flip = k >= K && k < 32 * K && ((lane * K) & k) ? 0xffffffffu : 0u;
+#pragma unroll
+    for (int q = 0; q < K; ++q) key[q] ^= flip;
+    sort_stages<K, k, k / 2>(key, lane);
+#pragma unroll
+    for (int q = 0; q < K; ++q) key[q] ^= flip;
+    sort_phases<K, 2 * k>(key, lane);
+  }
+}
+
+// One warp (one block) per row of n <= 32 * K keys, padded to 32 * K. vec:
+// n % 4 == 0 and both bases 16-byte aligned, so a lane's keys move as float4
+// (its K consecutive floats, 64 bytes apart from the next lane's: as single
+// floats the loads and stores took 1 us more at (128, 384) on an H100).
+template <int K>
+__global__ void __launch_bounds__(32) sort_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
+                                                  bool vec) {
+  const int lane = threadIdx.x, first = lane * K;
+  const float* xr = x + (size_t)blockIdx.x * n;
+  float* outr = out + (size_t)blockIdx.x * n;
+  uint32_t key[K];
+  if constexpr (K >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < K; c += 4) {
+        const bool in = first + c < n;
+        const float4 f = in ? *reinterpret_cast<const float4*>(xr + first + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        key[c] = in ? float_key(f.x) : PAD_KEY;
+        key[c + 1] = in ? float_key(f.y) : PAD_KEY;
+        key[c + 2] = in ? float_key(f.z) : PAD_KEY;
+        key[c + 3] = in ? float_key(f.w) : PAD_KEY;
+      }
+      sort_phases<K, 2>(key, lane);
+#pragma unroll
+      for (int c = 0; c < K; c += 4)
+        if (first + c < n)
+          *reinterpret_cast<float4*>(outr + first + c) =
+              make_float4(key_float(key[c]), key_float(key[c + 1]), key_float(key[c + 2]), key_float(key[c + 3]));
+      return;
     }
   }
-  for (int e = threadIdx.x; e < n; e += blockDim.x) out[row + e] = key_float(keys[e]);
+#pragma unroll
+  for (int q = 0; q < K; ++q) key[q] = first + q < n ? float_key(xr[first + q]) : PAD_KEY;
+  sort_phases<K, 2>(key, lane);
+#pragma unroll
+  for (int q = 0; q < K; ++q)
+    if (first + q < n) outr[first + q] = key_float(key[q]);
 }
 
 // Whether (bv, bi) beats (av, ai): NaN above all, then the larger value, then the smaller index.
@@ -250,9 +324,21 @@ int probe_scan(const void* x, void* out, int lines, int n, int s_elem, int s_lin
 // x (rows, n) f32, n <= 2048 -> each row sorted ascending.
 int probe_sort_rows(const void* x, void* out, int rows, int n, void* stream) {
   if (rows <= 0 || n <= 0 || n > MAX_SORT) return (int)cudaErrorInvalidValue;
-  int p = 2;
-  while (p < n) p *= 2;
-  sort_kernel<<<rows, p / 2, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n, p);
+  int keys = 1;  // K: keys a lane, the padded row's width / 32
+  while (32 * keys < n) keys *= 2;
+  const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (keys) {
+    case 1: sort_kernel<1><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    case 2: sort_kernel<2><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    case 4: sort_kernel<4><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    case 8: sort_kernel<8><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    case 16: sort_kernel<16><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    case 32: sort_kernel<32><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+    default: sort_kernel<64><<<rows, 32, 0, st>>>(xf, of, n, vec); break;
+  }
   return (int)last_error();
 }
 

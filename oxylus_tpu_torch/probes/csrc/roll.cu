@@ -13,9 +13,8 @@
 //   one roll; s_i a launch argument or base + i % step_mod (a power of two)
 //   with base read from device memory at run time. Bound: the adds, 2000 *
 //   1024 for the script's chain, 0.03 us of float32 rate; the rotates are data
-//   movement. In fact bound by instruction issue: the script's 8 rows are one
-//   block of 8 warps, 2 per scheduler, each issuing ~26 instructions per
-//   iteration (4 shuffles, 8 selects, 4 adds, the shift's integer work).
+//   movement. In fact bound by the latency of each element's 2000 dependent
+//   adds (~2.2 ns each on an H100, 4.4 us in all).
 // - vector_chain: 8 dependent float32 operations per element and iteration
 //   (4 mul, 4 add/sub, no fused multiply-add under -fmad=false). Bound: 8 *
 //   n * n_iter operations at 67 TFLOP/s (which counts an FMA as two), 0.24 us
@@ -34,17 +33,18 @@
 // - dynamic_trip: acc = sum of x over a trip count read from device memory
 //   at run time; bound 37 * 1024 adds, 0.6 ns.
 //
-// What the design does about it: a 128-lane row lives in one warp, four values
-// per thread (lane l holds lanes l, l+32, l+64, l+96), so a rotate by s =
-// 32 qs + rs is four shfl.sync.idx by rs plus a register rotate by qs or
-// qs + 1: no shared memory and no barrier. The register rotate is two stages
-// of selects (written as `q == 0 ? y0 : q == 1 ? ...` it compiled to branch
-// regions and cost 4x), and the shift is computed from i alone, so unrolled
-// iterations overlap. The shuffle is volatile asm, so the compiler cannot
-// hoist a loop-invariant rotate out of the chain: each iteration measures
-// one. The chain can rotate through shared memory instead (via_smem). The
-// same layout gives argmax by a shuffle tree. The
-// vector chain is one thread per element.
+// What the design does about it: the roll chain is a thread per output
+// element, blocks of CHAIN_THREADS = 128 (the script's 1024 elements on 8
+// SMs; 32 to 256 measured within 1 % of each other on an H100, each warp
+// waiting on its own chain). The shifts s_i take D = min(step_mod, 128)
+// values (1 for a static shift), so element (r, j) loads the D rotated values
+// x[r, (j - base - k) mod 128], k < D, into registers once and adds them in
+// iteration order, acc = acc + v[i % D] from 0.0f: the plain version's sums,
+// one add an iteration, none reassociated. Without `accumulate` it loads the
+// last iteration's value alone, a block a row through shared memory, so that
+// the shift's read overlaps the row's. argmax_extract keeps a 128-lane row in
+// one warp, four values per thread (lane l holds lanes l, l+32, l+64, l+96),
+// and reduces by a shuffle tree. The vector chain is one thread per element.
 //
 // The products run on a planned grid (roll.product_plan) of m-tiles x n-tiles
 // x k-slices x repetition groups, about one wave of the 132 SMs: each CTA
@@ -76,83 +76,49 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WIDTH = 128;
 constexpr int ROW_WARPS = 8;  // rows per block for the one-warp-per-row kernels
+constexpr int CHAIN_THREADS = 128;  // threads a block of the roll chain
 
 int blocks_for(int n, int per) { return (n + per - 1) / per; }
 
-__device__ __forceinline__ float shfl_idx(float v, int src) {
-  float r;
-  asm volatile("shfl.sync.idx.b32 %0, %1, %2, 0x1f, 0xffffffff;\n" : "=f"(r) : "f"(v), "r"(src));
-  return r;
-}
-
-// v[q] holds lane `lane` + 32q of a 128-lane row; o = the row rolled by s in [0, 128):
-// o at lane j is v at lane (j - s) mod 128. The register rotate o[q] = y[(q - r) & 3]
-// is two stages of selects (by 1, then by 2), so it compiles to FSEL, not to branches.
-__device__ __forceinline__ void roll128(const float (&v)[4], float (&o)[4], int s, int lane) {
-  const int rs = s & 31;
-  float y[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) y[q] = shfl_idx(v[q], (lane - rs) & 31);
-  const int r = (lane >= rs ? s >> 5 : (s >> 5) + 1) & 3;
-  const bool by1 = r & 1, by2 = r & 2;
-  float z[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) z[q] = by1 ? y[(q + 3) & 3] : y[q];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) o[q] = by2 ? z[(q + 2) & 3] : z[q];
-}
-
-// One warp per 128-lane row. Iteration i rolls by (base + (i & step_mask)) mod
-// 128: no value carried from one iteration to the next but the sums, so the
-// unrolled iterations' shuffles overlap. SMEM: the rotate goes through the
-// warp's row in shared memory (store, __syncwarp, load rotated, __syncwarp;
-// volatile, so every iteration does it) instead of shuffles. ACC: sum the
-// rolls, else keep the last.
-template <bool SMEM, bool ACC>
-__global__ void __launch_bounds__(ROW_WARPS * 32) roll_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                                                    int rows, int shift, const int* shift_ptr,
-                                                                    int n_iter, int step_mask) {
-  __shared__ float staged[ROW_WARPS][WIDTH];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROW_WARPS + warp;
-  if (row >= rows) return;
-  const float* xr = x + (size_t)row * WIDTH;
-  volatile float* srow = staged[warp];
-  float v[4], acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = xr[lane + 32 * q];
+// The roll chain: a thread per element e = (row, j); D distinct shifts, each
+// value loaded once. C adds a loop trip, a multiple of D, so that v[k % D] is
+// a register.
+template <int D>
+__global__ void __launch_bounds__(CHAIN_THREADS) roll_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                                                  int n, int shift, const int* shift_ptr, int n_iter) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int j = e & (WIDTH - 1);
+  const float* xr = x + (e - j);
   const int base = ((shift_ptr ? *shift_ptr : shift) % WIDTH + WIDTH) % WIDTH;
-#pragma unroll 8
-  for (int i = 0; i < n_iter; ++i) {
-    const int s = (base + (i & step_mask)) & (WIDTH - 1);
-    float o[4];
-    if (SMEM) {
+  float v[D];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) srow[lane + 32 * q] = v[q];
-      __syncwarp();
+  for (int k = 0; k < D; ++k) v[k] = k < n_iter ? xr[(j - base - k) & (WIDTH - 1)] : 0.0f;
+  constexpr int C = D < 8 ? 8 : D;
+  float acc = 0.0f;
+  int i = 0;
+  for (; i + C <= n_iter; i += C) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) o[q] = srow[(lane + 32 * q - s) & (WIDTH - 1)];
-      __syncwarp();
-    } else {
-      roll128(v, o, s, lane);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] = ACC ? acc[q] + o[q] : o[q];
+    for (int k = 0; k < C; ++k) acc = acc + v[k % D];
   }
-  float* outr = out + (size_t)row * WIDTH;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) outr[lane + 32 * q] = acc[q];
+  for (int k = 0; k < C; ++k)
+    if (i + k < n_iter) acc = acc + v[k % D];
+  out[e] = acc;
 }
 
-template <bool SMEM>
-cudaError_t launch_roll_chain(const float* x, float* out, int rows, int shift, const int* shift_ptr, int n_iter,
-                              int step_mask, bool accumulate, cudaStream_t st) {
-  const dim3 grid(blocks_for(rows, ROW_WARPS)), block(ROW_WARPS * 32);
-  if (accumulate)
-    roll_chain_kernel<SMEM, true><<<grid, block, 0, st>>>(x, out, rows, shift, shift_ptr, n_iter, step_mask);
-  else
-    roll_chain_kernel<SMEM, false><<<grid, block, 0, st>>>(x, out, rows, shift, shift_ptr, n_iter, step_mask);
-  return cudaGetLastError();
+// Without `accumulate`: the last iteration's roll, by base + last_step. A
+// block per row: the row is staged in shared memory while the shift is read,
+// so the two loads overlap.
+__global__ void __launch_bounds__(WIDTH) roll_last_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                                          int shift, const int* shift_ptr, int last_step) {
+  __shared__ float row[WIDTH];
+  const int j = threadIdx.x;
+  const size_t at = (size_t)blockIdx.x * WIDTH + j;
+  row[j] = x[at];
+  const int base = ((shift_ptr ? *shift_ptr : shift) % WIDTH + WIDTH) % WIDTH;
+  __syncthreads();
+  out[at] = row[(j - base - last_step) & (WIDTH - 1)];
 }
 
 __global__ void vector_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int n_iter) {
@@ -577,15 +543,31 @@ extern "C" {
 // x, out: (rows, 128) f32. shift_ptr null: the shift is `shift`; else it is
 // *shift_ptr, read on the card. Iteration i rolls by that plus i % step_mod
 // (step_mod 0: plus nothing; else a power of two); with `accumulate` the rolls
-// are summed, else the last is written; via_smem: the rotate goes through
-// shared memory.
+// are summed (roll_chain_kernel), else the last is written (roll_last_kernel).
 int probe_roll_chain(const void* x, void* out, int rows, int shift, const void* shift_ptr, int n_iter, int step_mod,
-                     int accumulate, int via_smem, void* stream) {
+                     int accumulate, void* stream) {
   if (rows <= 0 || n_iter < 1 || step_mod < 0 || (step_mod & (step_mod - 1)) != 0) return (int)cudaErrorInvalidValue;
-  const int step_mask = step_mod ? step_mod - 1 : 0;
-  auto launch = via_smem ? launch_roll_chain<true> : launch_roll_chain<false>;
-  return (int)launch((const float*)x, (float*)out, rows, shift, (const int*)shift_ptr, n_iter, step_mask,
-                     accumulate != 0, (cudaStream_t)stream);
+  const int n = rows * WIDTH, grid = blocks_for(n, CHAIN_THREADS);
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
+  const int* sp = (const int*)shift_ptr;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!accumulate) {
+    roll_last_kernel<<<rows, WIDTH, 0, st>>>(xf, of, shift, sp, step_mod ? (n_iter - 1) & (step_mod - 1) : 0);
+    return (int)cudaGetLastError();
+  }
+  // the distinct shifts: i % step_mod, and mod 128 no more than 128 of them
+  switch (step_mod == 0 ? 1 : step_mod < WIDTH ? step_mod : WIDTH) {
+    case 1: roll_chain_kernel<1><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 2: roll_chain_kernel<2><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 4: roll_chain_kernel<4><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 8: roll_chain_kernel<8><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 16: roll_chain_kernel<16><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 32: roll_chain_kernel<32><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    case 64: roll_chain_kernel<64><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+    default: roll_chain_kernel<128><<<grid, CHAIN_THREADS, 0, st>>>(xf, of, n, shift, sp, n_iter); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 int probe_vector_chain(const void* x, void* out, int n, int n_iter, void* stream) {

@@ -15,9 +15,10 @@ The script's cases, on x = arange(128·384) % 7 as (128, 384) float32:
 
 Each op here takes tensors: on a CUDA tensor it launches its kernel in
 `csrc/mosaic_ops.cu` (one kernel per op, one block per row, or per column for
-the axis-0 scan; cases 1, 2 and 10 share the lane gather), on a CPU tensor its
-plain version. Gathers follow `jnp.take_along_axis`: an index in [-n, 0) counts
-from the end, one outside [-n, n) gives NaN. The scan adds in the order of the
+the axis-0 scan, or for the sort one warp per row with the keys in registers;
+cases 1, 2 and 10 share the lane gather), on a CPU tensor its plain version.
+Gathers follow `jnp.take_along_axis`: an index in [-n, 0) counts from the end,
+one outside [-n, n) gives NaN. The scan adds in the order of the
 kernel's warp scan (a Hillis-Steele scan in each warp of 32, then of the warp
 totals), which `cumsum_reference` repeats, so kernel and plain agree exactly;
 every other op is exact by nature.
@@ -36,7 +37,7 @@ from . import dispatch, expect_equal, launch, require, result, time_us
 
 B, C = 128, 384
 MAX_LINE = 1024  # the scan and argmax take lines of at most one block of threads
-MAX_SORT = 2048  # the sort's bitonic network holds at most this many keys
+MAX_SORT = 2048  # the sort's bitonic network holds at most this many keys (64 a lane of one warp)
 
 LAUNCHES = 0
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()  # launches by kernel
@@ -91,7 +92,14 @@ def cumsum_reference(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def sort_lanes_reference(x: torch.Tensor) -> torch.Tensor:
-    return torch.sort(x, dim=1).values
+    """Each row sorted by the kernel's order-preserving keys: -0 before +0, NaN
+    last as 0x7fc00000 (the total order of `lax.sort`), so the kernel's bits."""
+    b = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b | 0x80000000)
+    key = torch.where(torch.isnan(x), torch.full_like(key, 0xFFFFFFFE), key).sort(1).values
+    back = torch.where(key >= 0x80000000, key & 0x7FFFFFFF, 0xFFFFFFFF - key)
+    back = torch.where(key == 0xFFFFFFFE, torch.full_like(key, 0x7FC00000), back)
+    return (back - (back >= 0x80000000).long() * (1 << 32)).to(torch.int32).view(torch.float32)
 
 
 def argmax_lanes_reference(x: torch.Tensor) -> torch.Tensor:
@@ -266,8 +274,11 @@ def seeded_cases(seed: int, device=None) -> list[tuple[str, str, tuple]]:
     """The ten cases on seeded normal data at the script's shapes, in its order
     (indices in [-n - 16, n + 16), so wrapped and out-of-range ones too; rows
     with ties, and NaN in two entries for the sort and argmax), then the scan,
-    sort and roll at an odd width and other shifts, and rolls of rows whose
-    width is not a multiple of 4."""
+    sort and roll at an odd width and other shifts, rolls of rows whose width
+    is not a multiple of 4, and sorts of rows at every count of keys a lane of
+    the sort's warp holds (1 to 64: widths 1, 37, 100, 127, 200, 203, 383,
+    2045 and 2048), each by float4 (a width that is a multiple of 4) or by
+    single floats, ties and ±0 in the rounded rows."""
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     rng = np.random.default_rng(seed)
@@ -297,7 +308,13 @@ def seeded_cases(seed: int, device=None) -> list[tuple[str, str, tuple]]:
         ("seeded roll (5,383) shift=0", "roll_lanes", (t(odd[:5, :383]), 0)),
         ("seeded roll (5,383) shift=382", "roll_lanes", (t(odd[:5, :383]), 382)),
         ("seeded roll (1,7) shift=3", "roll_lanes", (t((rng.normal(size=(1, 7)) * 3.0).astype(np.float32)), 3)),
-    ]
+        ("seeded sort axis=1 (6,1)", "sort", (t(odd[:6, :1]),)),
+        ("seeded sort axis=1 (5,383)", "sort", (t(odd[:5, :383]),)),
+        ("seeded sort axis=1 (8,2048), ties and ±0", "sort",
+         (t(np.round(rng.normal(size=(8, 2048)) * 3.0).astype(np.float32)),)),
+    ] + [(f"seeded sort axis=1 ({rows},{n}), ties and ±0", "sort",
+          (t(np.round(rng.normal(size=(rows, n)) * 3.0).astype(np.float32)),))
+         for rows, n in ((5, 37), (5, 100), (5, 127), (5, 200), (5, 203), (3, 2045))]
 
 
 def run_case(kernel: str, args: tuple) -> torch.Tensor:

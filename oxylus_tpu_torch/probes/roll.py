@@ -20,12 +20,17 @@ the counterpart of the TPU kernels' SMEM scalars): on a CUDA tensor it launches
 its kernel in `csrc/roll.cu`, with the repetition loop inside the kernel, on a
 CPU tensor its plain version. Rotates, argmax extraction and the dynamic trip
 are exact; the vector chain repeats the kernel's operations one by one (the
-kernels are built with `-fmad=false`), so it is exact too. The products sum in
-another order on each side: exact on integer sums below 2²⁴, else within
-`product_bound`. Their kernels keep both operands in shared memory for all
-repetitions on a grid that `product_plan` lays out (m-tiles × n-tiles ×
-k-slices × repetition groups, `product_blocks` says which CTA does what) and
-add the per-CTA partials in a fixed order.
+kernels are built with `-fmad=false`), so it is exact too. The roll chain's
+kernel (`roll_chain`) is a thread per element, 128 a block: a chain's shifts
+take at most min(step_mod, 128) values, so each element loads those rotated
+values once and adds them in iteration order, one add an iteration from 0, as
+the plain version sums. The single roll has a kernel of its own
+(`roll_last`), a block a row. The products sum in another order
+on each side: exact on integer sums below 2²⁴, else within `product_bound`.
+Their kernels keep both operands in shared memory for all repetitions on a grid
+that `product_plan` lays out (m-tiles × n-tiles × k-slices × repetition
+groups, `product_blocks` says which CTA does what) and add the per-CTA
+partials in a fixed order.
 """
 
 from __future__ import annotations
@@ -164,20 +169,16 @@ def _rows128(x, name="x"):
         raise ValueError(f"{name}: expected (rows, 128), got {tuple(x.shape)}")
 
 
-ROTATES = ("shuffle", "smem")  # how the kernel rotates a 128-lane row: shuffles, or shared memory
-
-
-def _roll_chain(x, n_iter, shift, shift_t, step_mod, accumulate, via):
+def _roll_chain(x, n_iter, shift, shift_t, step_mod, accumulate):
     _rows128(x)
-    if n_iter < 1 or via not in ROTATES or step_mod < 0 or step_mod & (step_mod - 1):
-        raise ValueError(f"n_iter must be at least 1 (got {n_iter}), via one of {ROTATES} (got {via!r}) and "
-                         f"step_mod 0 or a power of two (got {step_mod})")
+    if n_iter < 1 or step_mod < 0 or step_mod & (step_mod - 1):
+        raise ValueError(f"n_iter must be at least 1 (got {n_iter}) and step_mod 0 or a power of two (got {step_mod})")
 
     def kernel():
         out = torch.empty_like(x)
         launch("probe_roll_chain", x.device, x.data_ptr(), out.data_ptr(), x.shape[0], shift,
-               None if shift_t is None else shift_t.data_ptr(), n_iter, step_mod, int(accumulate), int(via == "smem"))
-        _count("roll_chain" if via == "shuffle" else "roll_chain_smem")
+               None if shift_t is None else shift_t.data_ptr(), n_iter, step_mod, int(accumulate))
+        _count("roll_chain" if accumulate else "roll_last")
         return out
 
     tensors = (x,) if shift_t is None else (x, shift_t)
@@ -186,24 +187,22 @@ def _roll_chain(x, n_iter, shift, shift_t, step_mod, accumulate, via):
     return dispatch(kernel, plain, *tensors)
 
 
-def dynamic_roll(x: torch.Tensor, shift_t: torch.Tensor, via: str = "shuffle") -> torch.Tensor:
+def dynamic_roll(x: torch.Tensor, shift_t: torch.Tensor) -> torch.Tensor:
     """roll(x, shift_t[0], axis=1) on (rows, 128), the shift read at run time."""
     require(shift_t, torch.int32, (1,), "shift_t")
-    return _roll_chain(x, 1, 0, shift_t, 0, False, via)
+    return _roll_chain(x, 1, 0, shift_t, 0, False)
 
 
-def roll_chain(x: torch.Tensor, n_iter: int, shift: int = 1, via: str = "shuffle") -> torch.Tensor:
-    """Σ over n_iter iterations of roll(x, shift, axis=1) on (rows, 128); `via`
-    says how the kernel rotates (`ROTATES`)."""
-    return _roll_chain(x, n_iter, shift, None, 0, True, via)
+def roll_chain(x: torch.Tensor, n_iter: int, shift: int = 1) -> torch.Tensor:
+    """Σ over n_iter iterations of roll(x, shift, axis=1) on (rows, 128)."""
+    return _roll_chain(x, n_iter, shift, None, 0, True)
 
 
-def dynamic_roll_chain(x: torch.Tensor, n_iter: int, base_t: torch.Tensor, step_mod: int = DYN_STEP,
-                       via: str = "shuffle") -> torch.Tensor:
+def dynamic_roll_chain(x: torch.Tensor, n_iter: int, base_t: torch.Tensor, step_mod: int = DYN_STEP) -> torch.Tensor:
     """Σ over i < n_iter of roll(x, base_t[0] + i % step_mod, axis=1), base read at
     run time, step_mod a power of two (the script's 4)."""
     require(base_t, torch.int32, (1,), "base_t")
-    return _roll_chain(x, n_iter, 0, base_t, step_mod, True, via)
+    return _roll_chain(x, n_iter, 0, base_t, step_mod, True)
 
 
 def vector_chain(x: torch.Tensor, n_iter: int) -> torch.Tensor:
@@ -364,12 +363,10 @@ def run_probes(device=None, reps: int = 20, n_inner: int = N_INNER, reps_m: int 
     shift5, base3, trip37 = scalar(DYN_SHIFT, dev), scalar(DYN_BASE, dev), scalar(DYN_TRIP, dev)
     probe("dynamic roll (shift read at run time)", lambda: dynamic_roll(x, shift5),
           roll_chain_reference(xc, 1, DYN_SHIFT, accumulate=False))
-    static_want = roll_chain_reference(xc, n_inner, 1)
-    dynamic_want = roll_chain_reference(xc, n_inner, DYN_BASE, DYN_STEP)
-    for via, label in (("shuffle", ""), ("smem", " via shared memory")):
-        probe(f"static roll x{n_inner} (8,128){label}", lambda: roll_chain(x, n_inner, via=via), static_want, n_inner)
-        probe(f"dynamic roll x{n_inner} (8,128){label}", lambda: dynamic_roll_chain(x, n_inner, base3, via=via),
-              dynamic_want, n_inner)
+    probe(f"static roll x{n_inner} (8,128)", lambda: roll_chain(x, n_inner), roll_chain_reference(xc, n_inner, 1),
+          n_inner)
+    probe(f"dynamic roll x{n_inner} (8,128)", lambda: dynamic_roll_chain(x, n_inner, base3),
+          roll_chain_reference(xc, n_inner, DYN_BASE, DYN_STEP), n_inner)
     for xv, iters, inner, label in ((x, n_inner, n_inner * 8, "(8,128)"),
                                     (xb, VPU_BIG_ITERS, VPU_BIG_ITERS * 8 * 48, "(128,384)")):
         r = probe(f"vector chain x{iters}x8flop {label}", lambda: vector_chain(xv, iters),

@@ -13,7 +13,8 @@ SECTION names what to time, all of it when none is named: `kernels` (the
 main path's and the physics cell's kernels and the bench rates below),
 `dot_rhs_t`, `roll_lanes` and `dynslice` (the probes 9a, 9c's roll and 9b),
 `groups` (the group raster), `blend` (the sprite blend), `products` (9d's
-FFMA and bf16 products) and `tiles` (the tile raster at every tile edge).
+FFMA and bf16 products), `tiles` (the tile raster at every tile edge),
+`roll_chain` (9d's roll chains) and `sort` (9c's row sort).
 
 The second form (only as a file: `-m` has imported this checkout's package
 already) imports the package from DIR (for example a `git archive` of
@@ -101,6 +102,21 @@ Prints the card's name and power limit, then one JSON object:
   the FFMA, HGMMA, HMMA, LDS and LDSM instructions of each product kernel in
   the built library (`cuobjdump -sass`), to show that the repetition loop
   was not hoisted.
+- `roll_chain`: 9d's chains on the script's (8, 128) x and on 37 seeded rows,
+  each first held bit-equal to `roll_chain_reference` (the single roll by 5,
+  -133 and 517; the static chain x2000 by 1; the dynamic chain x2000, base 3
+  read on the card, step 4): `roll_chain_ms` (static, dynamic, single roll on
+  the script's x) per call in a CUDA graph of PROBE_REPS calls;
+  `vector_chain_ms` ((8, 128) x2000 and (128, 384) x200), timed the same way;
+  `op_ns`, the (8, 128) vector chain's time over its 16 000 dependent
+  operations; `chain_floor_ms`, 2000 of them.
+- `sort`: 9c's sort of the script's (128, 384) block (arange % 7) and of
+  seeded rows (ties, NaN, ±0) at widths 1, 37, 384, 1000 and 2048, each first
+  held to `sort_lanes_reference` as values, NaN meeting NaN and -0 equal to +0
+  (an earlier checkout's plain version, `torch.sort`, orders the two zeros
+  freely; `chip_smoke.py` phase 14 holds this checkout's bits): `sort_ms` by
+  case in a CUDA graph of PROBE_REPS calls, and `torch_sort_ms`, `torch.sort`
+  of the script's block timed the same way.
 """
 
 from __future__ import annotations
@@ -116,7 +132,8 @@ from pathlib import Path
 REPS = 20
 PROBE_REPS = 200  # calls in the probes' CUDA graph, as `chip_smoke.py` phase 14
 DT = 1.0 / 60.0
-SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend", "products", "tiles")
+SECTIONS = ("kernels", "dot_rhs_t", "roll_lanes", "dynslice", "groups", "blend", "products", "tiles", "roll_chain",
+            "sort")
 BLEND_FRAMES = 62  # the 2D and config-3 runners' frames before the blend is captured (chip_smoke's 2 + 60)
 FIELDS = ("pos", "linvel", "angvel", "quat")
 
@@ -209,6 +226,10 @@ def main(argv: list[str]) -> int:
         products_section(torch, dev, out)
     if "tiles" in want:
         tiles_section(torch, dev, out)
+    if "roll_chain" in want:
+        roll_chain_section(torch, dev, out)
+    if "sort" in want:
+        sort_section(torch, dev, out)
     if "kernels" not in want:
         print(json.dumps(out), flush=True)
         return 0
@@ -498,6 +519,54 @@ def probes_section(torch, dev, out, want) -> None:
         out["index_select_us"] = us(lambda: torch.index_select(x, 1, src))
         out["dynslice_us"] = us(lambda: dynslice.dynslice(x, d))
 
+
+def roll_chain_section(torch, dev, out) -> None:
+    """9d's roll chains and vector chains (see the module's docstring)."""
+    from oxylus_tpu_torch.probes import roll
+
+    xs = roll.script_x(dev)
+    for x in (xs, roll.seeded_x(51, (37, 128), dev)):
+        for shift in (5, -133, 517):
+            exact(torch, f"dynamic roll {shift}", [roll.dynamic_roll(x, roll.scalar(shift, dev))],
+                  [roll.roll_chain_reference(x, 1, shift, accumulate=False)])
+        exact(torch, "static roll chain", [roll.roll_chain(x, roll.N_INNER, 1)],
+              [roll.roll_chain_reference(x, roll.N_INNER, 1)])
+        exact(torch, "dynamic roll chain", [roll.dynamic_roll_chain(x, roll.N_INNER, roll.scalar(roll.DYN_BASE, dev))],
+              [roll.roll_chain_reference(x, roll.N_INNER, roll.DYN_BASE, roll.DYN_STEP)])
+    base3, shift5 = roll.scalar(roll.DYN_BASE, dev), roll.scalar(roll.DYN_SHIFT, dev)
+    ms = lambda fn: graph_ms(torch, fn, PROBE_REPS)
+    out["roll_chain_ms"] = {"static": ms(lambda: roll.roll_chain(xs, roll.N_INNER, 1)),
+                            "dynamic": ms(lambda: roll.dynamic_roll_chain(xs, roll.N_INNER, base3)),
+                            "single": ms(lambda: roll.dynamic_roll(xs, shift5))}
+    xb = roll.script_xb(dev)
+    out["vector_chain_ms"] = {"(8, 128)": ms(lambda: roll.vector_chain(xs, roll.N_INNER)),
+                              "(128, 384)": ms(lambda: roll.vector_chain(xb, roll.VPU_BIG_ITERS))}
+    out["op_ns"] = out["vector_chain_ms"]["(8, 128)"] * 1e6 / (8 * roll.N_INNER)
+    out["chain_floor_ms"] = roll.N_INNER * out["op_ns"] * 1e-6
+
+
+def sort_section(torch, dev, out) -> None:
+    """9c's row sort beside torch.sort (see the module's docstring)."""
+    import numpy as np
+
+    from oxylus_tpu_torch.probes import mosaic_ops
+
+    rng = np.random.default_rng(61)
+    cases = {"script (128, 384)": np.arange(128 * 384, dtype=np.float32).reshape(128, 384) % np.float32(7.0)}
+    for rows, n in ((64, 1), (37, 37), (128, 384), (37, 1000), (16, 2048)):
+        x = (rng.normal(size=(rows, n)) * 4.0).astype(np.float32)
+        x[::3] = np.round(x[::3])  # ties, and -0 beside +0
+        x[1, :: max(1, n // 3)] = np.nan
+        cases[f"seeded ({rows}, {n})"] = x
+    out["sort_ms"] = {}
+    for label, x in cases.items():
+        xt = torch.from_numpy(x).to(dev)
+        got, want = mosaic_ops.sort_lanes(xt), mosaic_ops.sort_lanes_reference(xt)
+        if not bool(((got == want) | (got.isnan() & want.isnan())).all()):
+            raise RuntimeError(f"sort {label}: kernel != plain")
+        out["sort_ms"][label] = graph_ms(torch, lambda: mosaic_ops.sort_lanes(xt), PROBE_REPS)
+    xs = torch.from_numpy(cases["script (128, 384)"]).to(dev)
+    out["torch_sort_ms"] = graph_ms(torch, lambda: torch.sort(xs, 1), PROBE_REPS)
 
 
 SASS_OPS = ("FFMA", "HGMMA", "HMMA", "LDS", "LDSM")

@@ -235,10 +235,9 @@ def test_rolls_match_jax_exactly(roll_script, seed):
     out = SDS((S, L), jnp.float32)
     assert_exact(roll.dynamic_roll(x, roll.scalar(roll.DYN_SHIFT, "cpu")),
                  interpret(ns["k_dynroll"], xj, out, _smem()))
-    for via in roll.ROTATES:  # one plain version for both of the kernel's rotates
-        assert_exact(roll.roll_chain(x, N_INNER_CPU, via=via), interpret(ns["k_rollrate"], xj, out))
-        assert_exact(roll.dynamic_roll_chain(x, N_INNER_CPU, roll.scalar(roll.DYN_BASE, "cpu"), via=via),
-                     interpret(ns["k_dynrollrate"], xj, out, _smem()))
+    assert_exact(roll.roll_chain(x, N_INNER_CPU), interpret(ns["k_rollrate"], xj, out))
+    assert_exact(roll.dynamic_roll_chain(x, N_INNER_CPU, roll.scalar(roll.DYN_BASE, "cpu")),
+                 interpret(ns["k_dynrollrate"], xj, out, _smem()))
     if seed is None:
         assert np.array_equal(x.numpy(), np.asarray(ns["x"]))
 
@@ -329,7 +328,7 @@ def test_run_all_on_the_cpu_launches_no_kernel():
     before = [m.LAUNCHES for m in mods]
     lines = probes.run_all("cpu", reps=1, n_inner=4, reps_m=2)
     assert [m.LAUNCHES for m in mods] == before
-    assert len(lines) == 1 + 1 + 10 + 14
+    assert len(lines) == 1 + 1 + 10 + 12
     assert all(r["device"] == "cpu" and np.isfinite(r["us"]) for r in lines)
     assert all(probes.format_line(r).startswith("OK   ") for r in lines)
 
@@ -349,7 +348,9 @@ def test_ops_refuse_unsupported_devices_and_shapes():
     with pytest.raises(ValueError):
         roll.roll_chain(torch.zeros(2, 64), 2)
     with pytest.raises(ValueError):
-        roll.roll_chain(torch.zeros(2, 128), 2, via="registers")
+        roll.roll_chain(torch.zeros(2, 128), 0)
+    with pytest.raises(ValueError):
+        roll.dynamic_roll_chain(torch.zeros(2, 128), 2, roll.scalar(3, "cpu"), step_mod=3)
     with pytest.raises(ValueError):
         roll.matmul_acc(torch.ones(8, 16), torch.ones(16, 16), 1)
     with pytest.raises(ValueError):
